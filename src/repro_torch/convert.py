@@ -1,0 +1,105 @@
+"""Carry the reference package's state across into the port.
+
+The reference hands its state over as numpy arrays (``np.asarray`` of
+its shards and maps), a policy's fields and a warm-start memo's JSON;
+these functions rebuild the port's objects from them, so both packages
+can compute on the same data.  Nothing here imports the reference.
+
+bfloat16 arrays (``ml_dtypes.bfloat16``, which ``torch.from_numpy``
+rejects) cross as a ``uint16`` view of the same bits.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.interleave import InterleavedTensor
+from repro_torch.core.policy import MemPolicy, PolicyKind
+from repro_torch.core.warmstart import WarmStartMemo
+from repro_torch.device import (DeviceLike, resolve_backend, resolve_device,
+                                shard_storage)
+
+
+def tensor_from_numpy(array) -> torch.Tensor:
+    """A host tensor with ``array``'s values (bfloat16 bit-exact)."""
+    array = np.ascontiguousarray(array)
+    if array.dtype.name == "bfloat16":
+        return torch.from_numpy(array.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(array.copy())
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """Host numpy copy of ``t``; bfloat16 comes back as float32 (exact)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.numpy()
+
+
+def policy_from_reference(policy) -> MemPolicy:
+    """The port's :class:`MemPolicy` equal to a reference ``MemPolicy``
+    (read through its ``kind``, ``tiers`` and ``weights`` fields)."""
+    kind = getattr(policy.kind, "value", policy.kind)
+    return MemPolicy(PolicyKind(kind), tuple(policy.tiers),
+                     tuple(int(w) for w in policy.weights))
+
+
+def interleaved_from_state(
+    parts: Sequence, page_device, page_local, page_rows: int, rows: int,
+    device_names: Sequence[str], headroom: int = 0, *,
+    device: DeviceLike = None, backend: Optional[str] = None,
+) -> InterleavedTensor:
+    """An :class:`InterleavedTensor` holding exactly the reference
+    tensor's shards (capacity padding included) and page maps."""
+    device = resolve_device(device)
+    backend = resolve_backend(backend, device)
+    shards = []
+    for i, part in enumerate(parts):
+        host = tensor_from_numpy(part)
+        shard = torch.empty(tuple(host.shape), dtype=host.dtype,
+                            **shard_storage(i, backend, device))
+        shards.append(shard.copy_(host))
+    dev = np.array(page_device, np.int8)
+    local = np.array(page_local, np.int32)
+    out = InterleavedTensor(
+        parts=tuple(shards),
+        page_device=torch.as_tensor(dev, dtype=torch.int8, device=device),
+        page_local=torch.as_tensor(local, dtype=torch.int64, device=device),
+        page_rows=int(page_rows),
+        rows=int(rows),
+        device_names=tuple(device_names),
+        headroom=int(headroom),
+        backend=backend,
+        device=device,
+    )
+    out._with_map(dev, local)
+    return out
+
+
+def interleaved_from_reference(it, *, device: DeviceLike = None
+                               ) -> InterleavedTensor:
+    """Carry a reference ``InterleavedTensor`` across (its arrays are read
+    through ``np.asarray``; its backend is not, the port's follows from
+    ``device``)."""
+    return interleaved_from_state(
+        [np.asarray(p) for p in it.parts], np.asarray(it.page_device),
+        np.asarray(it.page_local), it.page_rows, it.rows, it.device_names,
+        it.headroom, device=device)
+
+
+def table_from_numpy(table, policy: MemPolicy, page_rows: int, *,
+                     headroom: int = 0, device: DeviceLike = None
+                     ) -> InterleavedTensor:
+    """Page a numpy table under ``policy``, as the reference's
+    ``InterleavedTensor.from_array`` does with the same arguments."""
+    return InterleavedTensor.from_array(
+        tensor_from_numpy(table), policy, page_rows, headroom=headroom,
+        device=device)
+
+
+def memo_from_json(text: str) -> WarmStartMemo:
+    """A warm-start memo written by either package."""
+    return WarmStartMemo.from_json(text)
