@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one H100.
 
     python3 chip_smoke.py            # the full slice: 8 GiB DLRM table
+    python3 chip_smoke.py --sweep    # and a static slow-fraction sweep
 
 It needs a CUDA card and the checkout's ``src/`` beside it, and fails
 (non-zero exit, no result line) otherwise.  Phases, each raising on a
@@ -18,7 +19,8 @@ wrong result or a missing kernel launch:
    actuation audit (0 -> 0.25 -> 0.10 slow, donated, through
    ``BulkMover(execute=stream_executor())``); then a Caption walk from
    0% slow on measured bag throughput.  Kernel launch counts are reset
-   right before the walk and read right after it.
+   right before the walk and read right after it.  ``--sweep`` then
+   measures bags/s at fixed slow fractions (not part of the main path).
 
 Prints the card line, per-phase lines, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.
@@ -44,11 +46,24 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn()`` over ``iters`` calls (CUDA events)."""
+def time_ms(fn, iters: int = 20, warmup: int = 3,
+            queue_ahead: bool = False) -> float:
+    """Mean time of ``fn()`` over ``iters`` calls between two CUDA events.
+
+    Without ``queue_ahead`` the host's launch gaps count (the end-to-end
+    view).  With it the card first sleeps while the host enqueues every
+    call, so the events time the device work alone: a kernel's time, not
+    the rate at which Python can launch it."""
     import torch
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    if queue_ahead:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        # twice the host time of all calls, at <= 2 GHz (H100 boost 1.98)
+        torch.cuda._sleep(int(2 * iters * (time.perf_counter() - t0) * 2e9))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -120,7 +135,8 @@ def phase_embedding_reduce(stats: dict) -> None:
             for V, D, B, K in ((4096, 64, 256, 80), (300, 24, 17, 5),
                                (64, 512, 3, 33)):
                 table = torch.randn((V, D), generator=g).to(dtype)
-                idx = torch.randint(0, V, (B, K), generator=g)
+                idx = torch.randint(0, V, (B, K), generator=g,
+                                    dtype=torch.int32)
                 idx[:, 1] = idx[:, 0]  # duplicate lookups
                 w = torch.rand((B, K), generator=g).to(dtype)
                 w[:, ::7] = 0  # rows of zero weight: no load, exact +0
@@ -145,9 +161,11 @@ def phase_embedding_reduce(stats: dict) -> None:
     V = 1 << 22
     table = torch.randint(-8, 9, (V, DIM), dtype=torch.float32, generator=g)
     tab = _pinned(table)
-    idx = torch.randint(0, V, (BAG, LOOKUPS), generator=g).to(dev)
+    idx = torch.randint(0, V, (BAG, LOOKUPS), generator=g,
+                        dtype=torch.int32).to(dev)
     w = torch.ones((BAG, LOOKUPS), device=dev)
-    ms = time_ms(lambda: ops.embedding_reduce(tab, idx, w), iters=10)
+    ms = time_ms(lambda: ops.embedding_reduce(tab, idx, w), iters=10,
+                 queue_ahead=True)
     rate = BAG * LOOKUPS * DIM * 4 / (ms * 1e-3)
     log(f"phase2/embedding_reduce/pinned_random_rows,ms={ms:.4f},"
         f"rows_GBps={rate / 1e9:.2f}")
@@ -163,12 +181,12 @@ def phase_stream_copy(stats: dict) -> None:
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(2)
     shapes = [(1, 8), (7, 16), (100, 16), (300, 8), (513, 4), (5, 1),
-              (64, 3), (1024, 128)]
+              (64, 3), (1024, 128), (16 * PAGE_ROWS, DIM)]  # last: a run
     casts = [(torch.float32, None), (torch.float32, torch.bfloat16),
              (torch.bfloat16, torch.float32), (torch.bfloat16, None)]
     routes = {"hbm->hbm": ("hbm", "hbm"), "pinned->hbm": ("pinned", "hbm"),
               "hbm->pinned": ("hbm", "pinned")}
-    n = 0
+    n, worst = 0, 0.0
     for rname, (smem, dmem) in routes.items():
         for shape in shapes:
             for sdt, odt in casts:
@@ -190,22 +208,32 @@ def phase_stream_copy(stats: dict) -> None:
                     ops.stream_copy(src, out=out)
                     torch.cuda.synchronize()
                     want = ref.stream_copy(host, odt)
-                    assert torch.equal(out.cpu(), want), (rname, shape, sdt,
-                                                          odt, offset)
+                    got = out.cpu()
+                    worst = max(worst, float(
+                        (got.float() - want.float()).abs().max()))
+                    assert torch.equal(got, want), (rname, shape, sdt, odt,
+                                                    offset)
                     n += 1
-    log(f"phase3/stream_copy/ragged_sweep,cases={n},bit_exact=1")
+    log(f"phase3/stream_copy/ragged_sweep,cases={n},bit_exact=1,"
+        f"max_abs_err={worst}")
     # route rates on a 256 MiB slab (kernel vs copy_), and the slice's run
     # slab (16 pages x 64 rows x 64 fp32 = 256 KiB)
     for rname, (smem, dmem) in routes.items():
         for rows in (1 << 20, 16 * PAGE_ROWS):
-            src = torch.ones((rows, DIM), dtype=torch.float32)
-            src = src.to(dev) if smem == "hbm" else _pinned(src)
+            host = torch.randn((rows, DIM), generator=g)
+            src = host.to(dev) if smem == "hbm" else _pinned(host)
             out = (torch.empty_like(src, device=dev) if dmem == "hbm"
                    else torch.empty(src.shape, pin_memory=True))
+            ops.stream_copy(src, out=out)  # the timed slab, checked first
+            torch.cuda.synchronize()
+            got = out.cpu()
+            worst = max(worst, float((got - host).abs().max()))
+            assert torch.equal(got, ref.stream_copy(host)), (rname, rows)
             nbytes = src.numel() * 4
-            k_ms = time_ms(lambda: ops.stream_copy(src, out=out))
-            lib_ms = time_ms(lambda: out.copy_(src))
+            k_ms = time_ms(lambda: ops.stream_copy(src, out=out), queue_ahead=True)
+            lib_ms = time_ms(lambda: out.copy_(src), queue_ahead=True)
             # the plain version, then the move into the destination memory
+            # (host work for a pinned source: timed with the host's gaps)
             p_ms = time_ms(lambda: out.copy_(ref.stream_copy(src)))
             bound = (2 * nbytes / HBM_BW if rname == "hbm->hbm"
                      else nbytes / PCIE_BW)
@@ -215,10 +243,23 @@ def phase_stream_copy(stats: dict) -> None:
                 f"GBps={nbytes / (k_ms * 1e-3) / 1e9:.2f}")
             stats[f"copy/{rname}/{rows}"] = (k_ms, p_ms, lib_ms, bound * 1e3,
                                               nbytes)
+    stats["stream_copy_err"] = worst
     ops.LAUNCHES.reset()
 
 
-def phase_slice(stats: dict, rows_log2: int) -> dict:
+def epoch_rate(it, batches) -> float:
+    """Bags/s of one epoch of ``it.bag_reduce``: three windows of 32
+    batches, and their median, so one window stalled by the shared host
+    does not steer the walk."""
+    rates = []
+    for _ in range(3):
+        ms = time_ms(lambda: [it.bag_reduce(b) for b in batches], iters=8,
+                     warmup=1)
+        rates.append(BAG * len(batches) / (ms * 1e-3))
+    return sorted(rates)[1]
+
+
+def phase_slice(stats: dict, rows_log2: int, sweep: bool) -> dict:
     import torch
     from repro_torch.core import (BulkMover, CaptionConfig, CaptionController,
                                   EpochMetrics, InterleavedTensor, MemPolicy,
@@ -271,7 +312,7 @@ def phase_slice(stats: dict, rows_log2: int) -> dict:
     # kernel vs plain vs library at the slice's shapes (fast shard, f=0:
     # local row == logical row)
     fast_part = it.parts[0]
-    idx0 = batches[0]
+    idx0 = batches[0].to(torch.int32)  # the kernel's index width
     got = er_ops.embedding_reduce(fast_part, idx0, ones)
     plain = er_ref.embedding_reduce(fast_part, idx0, ones)
     lib = torch.nn.functional.embedding_bag(idx0, fast_part, mode="sum",
@@ -279,16 +320,22 @@ def phase_slice(stats: dict, rows_log2: int) -> dict:
     torch.cuda.synchronize()
     assert torch.equal(got, plain) and torch.equal(want[0], plain)
     er_err = float((got - plain).abs().max())
-    k_ms = time_ms(lambda: er_ops.embedding_reduce(fast_part, idx0, ones))
+    k_ms = time_ms(lambda: er_ops.embedding_reduce(fast_part, idx0, ones),
+                   queue_ahead=True)
     p_ms = time_ms(lambda: er_ref.embedding_reduce(fast_part, idx0, ones),
-                   iters=5)
+                   iters=5, queue_ahead=True)
     l_ms = time_ms(lambda: torch.nn.functional.embedding_bag(
-        idx0, fast_part, mode="sum", per_sample_weights=ones))
-    nbytes = (BAG * LOOKUPS * (DIM * 4 + 8 + 4) + BAG * DIM * 4)
+        idx0, fast_part, mode="sum", per_sample_weights=ones),
+        queue_ahead=True)
+    k_host_ms = time_ms(lambda: er_ops.embedding_reduce(fast_part, idx0,
+                                                        ones))
+    # rows, int32 indices and fp32 weights read once; the output written
+    nbytes = (BAG * LOOKUPS * (DIM * 4 + 4 + 4) + BAG * DIM * 4)
     flops = 2 * BAG * LOOKUPS * DIM
     er_bound = max(nbytes / HBM_BW, flops / FP32_FLOPS) * 1e3
     log(f"phase4/embedding_reduce/hbm,ms={k_ms:.4f},plain_ms={p_ms:.4f},"
         f"library_ms={l_ms:.4f},bound_ms={er_bound:.4f},bytes={nbytes},"
+        f"ms_with_host_gaps={k_host_ms:.4f},"
         f"library_max_abs_err={float((lib - plain).abs().max()):.3g},"
         f"rows_GBps={BAG * LOOKUPS * DIM * 4 / (k_ms * 1e-3) / 1e9:.2f}")
 
@@ -322,25 +369,15 @@ def phase_slice(stats: dict, rows_log2: int) -> dict:
                 f"GBps={billed / act_s / 1e9:.2f},bags_bit_equal=1,"
                 f"data_ptr_same=1,full_shard_copies=0")
 
-        # membind-fast reference and the measured Caption walk.  An epoch
-        # is three windows of 32 batches; the signal is their median, so
-        # one window stalled by the shared host does not steer the walk.
-        def epoch_rate() -> float:
-            rates = []
-            for _ in range(3):
-                ms = time_ms(lambda: [it.bag_reduce(b) for b in batches],
-                             iters=8, warmup=1)
-                rates.append(BAG * len(batches) / (ms * 1e-3))
-            return sorted(rates)[1]
-
-        membind = epoch_rate()
+        # membind-fast reference and the measured Caption walk
+        membind = epoch_rate(it, batches)
         log(f"phase4/membind_fast,bags_per_s={membind:.0f}")
         ctl = CaptionController(topo, cfg, initial_fraction=0.0)
         er_ops.LAUNCHES.reset()
         sc_ops.LAUNCHES.reset()
         trajectory = []
         for epoch in range(48):
-            rate = epoch_rate()
+            rate = epoch_rate(it, batches)
             d = ctl.observe(EpochMetrics(throughput=rate))
             t0 = time.perf_counter()
             it = it.repartition_fraction(d.fraction, mover=mover,
@@ -360,7 +397,7 @@ def phase_slice(stats: dict, rows_log2: int) -> dict:
     for b, w in zip(batches, want):
         assert torch.equal(it.bag_reduce(b), w)
     assert [p.data_ptr() for p in it.parts] == ptrs
-    final = epoch_rate()
+    final = epoch_rate(it, batches)
     log(f"phase4/walk/final,f={it.slow_fraction():.4f},converged="
         f"{int(ctl.converged)},epochs={len(trajectory)},"
         f"bags_per_s={final:.0f},membind_bags_per_s={membind:.0f},"
@@ -368,22 +405,8 @@ def phase_slice(stats: dict, rows_log2: int) -> dict:
     for name, count in launches.items():
         assert count > 0, f"{name} was never launched on the main path"
     landed = it.slow_fraction()
-
-    # static sweep in the same run: is the landing point worth its pages?
-    # (plain actuation through the telemetry path; not the main path)
-    sweep = {}
-    for f in (0.0, 0.05, 0.10, 0.15, 0.20, 0.30, 0.50):
-        it = it.repartition_fraction(f, fast_tier=fast, slow_tier=slow,
-                                     telemetry=Telemetry(), donate=True)
-        sweep[f] = epoch_rate()
-        busy = device_busy_share(lambda: [it.bag_reduce(b) for b in batches])
-        log(f"phase4/sweep/f{f:.2f},bags_per_s={sweep[f]:.0f},"
-            f"device_busy_share={busy}")
-    best = max(sweep, key=sweep.get)
-    log(f"phase4/sweep/best,f={best:.2f},bags_per_s={sweep[best]:.0f},"
-        f"landed_f={landed:.4f},membind_bags_per_s={sweep[0.0]:.0f}")
-    for b, w in zip(batches, want):
-        assert torch.equal(it.bag_reduce(b), w)
+    if sweep:
+        sweep_fractions(it, batches, want, landed)
     run = stats[f"copy/hbm->pinned/{16 * PAGE_ROWS}"]
     return {
         "launches": launches,
@@ -391,8 +414,38 @@ def phase_slice(stats: dict, rows_log2: int) -> dict:
                "bound_ms": er_bound,
                "err": max(er_err, stats["embedding_reduce_err"])},
         "sc": {"ms": run[0], "plain_ms": run[1], "library_ms": run[2],
-               "bound_ms": run[3], "nbytes": run[4]},
+               "bound_ms": run[3], "nbytes": run[4],
+               "err": stats["stream_copy_err"]},
     }
+
+
+def sweep_fractions(it, batches, want, landed: float) -> None:
+    """Bags/s at fixed slow fractions: is the walk's landing point worth
+    its pages?  Moves without a mover (``stream_copy`` on the current
+    stream); the busy share comes from a profiled window."""
+    import torch
+    from repro_torch.core import h100_topology
+    from repro_torch.core.telemetry import Telemetry
+    from repro_torch.kernels.stream_copy import ops as sc_ops
+    topo = h100_topology()
+    fast, slow = topo.fast.name, topo.slow.name
+    sweep = {}
+    sc_ops.LAUNCHES.reset()
+    for f in (0.0, 0.05, 0.10, 0.15, 0.20, 0.30, 0.50):
+        it = it.repartition_fraction(f, fast_tier=fast, slow_tier=slow,
+                                     telemetry=Telemetry(), donate=True)
+        sweep[f] = epoch_rate(it, batches)
+        busy = device_busy_share(lambda: [it.bag_reduce(b) for b in batches])
+        log(f"phase4/sweep/f{f:.2f},bags_per_s={sweep[f]:.0f},"
+            f"device_busy_share={busy}")
+    moves = sc_ops.LAUNCHES.reset()
+    assert moves > 0, "the sweep's page moves did not launch stream_copy"
+    best = max(sweep, key=sweep.get)
+    log(f"phase4/sweep/best,f={best:.2f},bags_per_s={sweep[best]:.0f},"
+        f"landed_f={landed:.4f},membind_bags_per_s={sweep[0.0]:.0f},"
+        f"stream_copy_launches={moves}")
+    for b, w in zip(batches, want):
+        assert torch.equal(it.bag_reduce(b), w)
 
 
 def main(argv=None) -> int:
@@ -400,6 +453,8 @@ def main(argv=None) -> int:
                                  formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--rows-log2", type=int, default=25,
                     help="table rows as a power of two (default 25: 8 GiB)")
+    ap.add_argument("--sweep", action="store_true",
+                    help="after the walk, measure bags/s at fixed fractions")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -414,7 +469,7 @@ def main(argv=None) -> int:
     stats: dict = {}
     phase_embedding_reduce(stats)
     phase_stream_copy(stats)
-    res = phase_slice(stats, args.rows_log2)
+    res = phase_slice(stats, args.rows_log2, args.sweep)
     er, sc = res["er"], res["sc"]
     kernels = [
         {"name": "embedding_reduce", "route": "cuda",
@@ -428,7 +483,7 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/csrc/stream_copy.cu",
          "replaces": "src/repro/kernels/stream_copy/kernel.py:102",
          "launches": res["launches"]["stream_copy"],
-         "max_abs_err": 0.0, "ms": sc["ms"],
+         "max_abs_err": sc["err"], "ms": sc["ms"],
          "plain_ms": sc["plain_ms"],
          "bound_ms": sc["bound_ms"], "bound_by": "bytes",
          "library_ms": sc["library_ms"]},

@@ -71,8 +71,9 @@ from repro_torch.device import (DeviceLike, resolve_backend, resolve_device,
 #: lower toward 1 for finer spreading (1 = legacy page-at-a-time).
 DEFAULT_RUN_PAGES = 16
 
-#: gather-crossover cost model, the reference's CPU calibration kept so
-#: both packages take the same path for the same call:
+#: gather-crossover cost model of the ``modeled`` backend, the reference's
+#: CPU calibration kept so both packages take the same path for the same
+#: call:
 #: the masked gather pays one pass per non-empty shard (fixed dispatch +
 #: per-byte work over the WHOLE batch each pass); the bucketed gather pays
 #: one host base (route + hand-back) plus per-row indexing overhead.
@@ -81,6 +82,9 @@ _GATHER_XLA_PER_BYTE = 0.0002e-6  #: masked per-byte cost, per shard pass
 _GATHER_HOST_BASE_S = 100e-6  #: bucketed fixed cost (route + hand-back)
 _GATHER_HOST_PER_ROW = 0.05e-6  #: per-row indexing overhead
 _GATHER_HOST_PER_BYTE = 0.0003e-6  #: bucketed per-byte copy cost
+
+#: rows an int32 index addresses (the kernel's index width)
+_INT32_ROWS = 1 << 31
 
 
 def _as_numpy(x) -> np.ndarray:
@@ -438,8 +442,14 @@ class InterleavedTensor:
         The masked path pays one full pass PER NON-EMPTY SHARD, so its
         cost scales with shard count and bytes; the bucketed path pays a
         fixed host base plus per-row indexing overhead, independent of
-        shard count.  Both give the same values; the constants are the
-        reference package's, so both packages pick the same path."""
+        shard count.  Both give the same values.  The crossover applies on
+        the ``modeled`` backend only, with the reference package's CPU
+        constants, so both packages pick the same path there.  On
+        ``pinned`` the bucketed gather is the one path: it reads a slow
+        shard over PCIe only for the rows that shard owns (no card
+        measurement yet places a crossover)."""
+        if self.backend == "pinned":
+            return "bucketed"
         shards = sum(1 for p in self.parts if p.shape[0] > 0) or 1
         row_bytes = (int(np.prod(self.parts[0].shape[1:]))
                      * self.parts[0].element_size())
@@ -597,6 +607,8 @@ class InterleavedTensor:
                                  device=self.device)
         weights = torch.as_tensor(weights).to(self.device)
         dev, local = self._route(indices)
+        if max(p.shape[0] for p in self.parts) <= _INT32_ROWS:
+            local = local.to(torch.int32)  # the kernel reads 4-byte indices
         out = None
         for i, part in enumerate(self.parts):
             if part.shape[0] == 0:
@@ -738,11 +750,13 @@ class InterleavedTensor:
 
         With a mover: one batched descriptor per run, and the staged data
         is the executor's output (on the card, after this stream waits on
-        each copy's ``done`` event).  Without one: a plain copy per run
-        and one telemetry record per run."""
+        each copy's ``done`` event).  Without one: one ``stream_copy`` per
+        run on the current stream (the kernel on the card, its plain
+        version on the CPU) and one telemetry record per run."""
         if not runs:
             return []
         if mover is None:
+            from repro_torch.kernels.stream_copy.ops import stream_copy
             page_bytes = self.page_rows * self.row_bytes
             staged = []
             for s, d, pages, l0 in runs:
@@ -751,9 +765,23 @@ class InterleavedTensor:
                                       page_bytes * len(pages), 0.0,
                                       source=source)
                 slab = self._slab(s, l0, len(pages))
-                staged.append(_empty(slab.shape, slab.dtype, d, self.backend,
-                                     self.device).copy_(slab))
-            return staged
+                staged.append(stream_copy(
+                    slab, out=_empty(slab.shape, slab.dtype, d, self.backend,
+                                     self.device), device=self.device))
+        else:
+            staged = self._issue_runs(runs, names, mover=mover,
+                                      source=source, lane=lane)
+        if self.device.type == "cuda" and any(not t.is_cuda for t in staged):
+            # host-side landings below run on the CPU: the copies into
+            # pinned staging, and every kernel still reading the pinned
+            # shards, must have finished first
+            torch.cuda.current_stream(self.device).synchronize()
+        return staged
+
+    def _issue_runs(self, runs, names, *, mover, source, lane
+                    ) -> list[torch.Tensor]:
+        """One descriptor per run through ``mover``; returns the executor's
+        outputs once this stream has waited on each copy's ``done``."""
         ready = None
         if self.device.type == "cuda":
             ready = torch.cuda.Event()
@@ -779,10 +807,6 @@ class InterleavedTensor:
             for desc in descs:
                 if desc.done is not None:
                     stream.wait_event(desc.done)
-            if any(not t.is_cuda for t in staged):
-                # host-side landings below run on the CPU: the copies
-                # into pinned staging must have finished first
-                stream.synchronize()
         return staged
 
     def _land(self, targets: dict, runs, staged, new_local: np.ndarray

@@ -171,43 +171,49 @@ def _dest_kwargs(x: torch.Tensor, dst) -> dict:
     return {"device": torch.device(dst)}
 
 
-def _execute_copy(payload, out_dtype=None, desc: Optional[Descriptor] = None):
-    """Plain copy into the destination memory (the default executor).
+def _on_card(x: torch.Tensor, dst) -> bool:
+    """A copy of ``x`` into ``dst`` is card work: either side in HBM or in
+    pinned host memory."""
+    return x.is_cuda or x.is_pinned() or dst is not None
 
-    ``out_dtype`` fuses the compressed-staging cast into the move.  CUDA
-    work is finished before returning, so the result is usable anywhere."""
+
+def _host_copy(x, out_dtype=None):
+    """Plain copy of a numpy array or a pageable host tensor."""
+    if isinstance(x, np.ndarray):
+        return np.array(x) if out_dtype is None else x.astype(out_dtype)
+    return x.to(dtype=out_dtype or x.dtype, copy=True)
+
+
+def _execute_copy(payload, out_dtype=None, desc: Optional[Descriptor] = None):
+    """Plain host copy (the default executor of a mover on the CPU).
+
+    ``out_dtype`` fuses the compressed-staging cast into the move.  Card
+    payloads and destinations are refused: on the card every move goes
+    through :func:`stream_executor`."""
     dst = desc.dst if desc is not None else None
-    card = False
 
     def _copy(x):
-        nonlocal card
-        if isinstance(x, np.ndarray):
-            return np.array(x) if out_dtype is None else x.astype(out_dtype)
-        dtype = out_dtype or x.dtype
-        out = torch.empty(x.shape, dtype=dtype, **_dest_kwargs(x, dst))
-        card = card or x.is_cuda or out.is_cuda
-        return out.copy_(x)
+        if isinstance(x, torch.Tensor) and _on_card(x, dst):
+            raise ValueError("card memory moves through stream_executor()")
+        return _host_copy(x, out_dtype)
 
-    out = _tree_map(_copy, payload)
-    if card:
-        torch.cuda.synchronize()
-    return out
+    return _tree_map(_copy, payload)
 
 
 def stream_executor(*, block_bytes_hint: int = 1 << 20
                     ) -> Callable[..., Any]:
     """Executor that moves payloads through the CUDA ``stream_copy`` kernel.
 
-    Tensors that lie on the card, or in pinned host memory with a card on
-    the other side, take the kernel, written into a new tensor in the
-    descriptor's ``dst`` memory: HBM->HBM, pinned->HBM and HBM->pinned.
-    The launch goes on a side stream that first waits on the descriptor's
-    ``ready`` event; a ``done`` event recorded after it is left on the
-    descriptor for the consumer to wait on.  Pageable host tensors (the
-    ``modeled`` backend) and numpy arrays take the plain copy.  The
-    returned callable is flagged ``pipelined`` so
+    Tensors that lie on the card or in pinned host memory take the kernel,
+    written into a new tensor in the descriptor's ``dst`` memory (beside
+    the payload when ``dst`` is None).  The launch goes on a side stream
+    of the destination card (else the current one) that first waits on
+    the descriptor's ``ready`` event; a ``done`` event recorded after it
+    is left on the descriptor for the consumer to wait on.  Pageable host
+    tensors (the ``modeled`` backend) and numpy arrays take the plain
+    copy.  The returned callable is flagged ``pipelined`` so
     ``BulkMover.modeled_cost`` switches to the overlapped-migration
-    perfmodel."""
+    perfmodel.  It is the default executor of a mover on the card."""
     from repro_torch.kernels.stream_copy import ops as _stream_ops
 
     streams: dict[torch.device, torch.cuda.Stream] = {}
@@ -225,24 +231,22 @@ def stream_executor(*, block_bytes_hint: int = 1 << 20
         events = []
 
         def _copy(x):
-            if isinstance(x, np.ndarray):
-                return np.array(x) if out_dtype is None else x.astype(out_dtype)
-            dtype = out_dtype or x.dtype
-            out = None
+            if isinstance(x, np.ndarray) or not _on_card(x, dst):
+                return _host_copy(x, out_dtype)
             place = _dest_kwargs(x, dst)
-            on_card = x.is_cuda or (x.is_pinned() and dst is not None
-                                    and dst != PINNED)
-            if not on_card:
-                if x.is_pinned() and dst == PINNED:
-                    raise ValueError("pinned -> pinned is not a card route")
-                return torch.empty(x.shape, dtype=dtype, **place).copy_(x)
-            device = x.device if x.is_cuda else torch.device(dst)
+            if x.is_cuda:
+                device = x.device
+            elif dst is not None and dst != PINNED:
+                device = torch.device(dst)
+            else:  # pinned -> pinned, through the current card
+                device = torch.device("cuda", torch.cuda.current_device())
             side = _side(device)
             with torch.cuda.device(device), torch.cuda.stream(side):
                 if desc is not None and desc.ready is not None:
                     side.wait_event(desc.ready)
-                out = torch.empty(x.shape, dtype=dtype, **place)
-                _stream_ops.stream_copy(x, out=out)
+                out = torch.empty(x.shape, dtype=out_dtype or x.dtype,
+                                  **place)
+                _stream_ops.stream_copy(x, out=out, device=device)
                 ev = torch.cuda.Event()
                 ev.record(side)
             events.append(ev)
@@ -272,12 +276,15 @@ class BulkMover:
         max_readers: int = 8,
         drain_workers: int = 1,
         telemetry: Telemetry = GLOBAL_TELEMETRY,
-        execute: Callable[..., Any] = _execute_copy,
+        execute: Optional[Callable[..., Any]] = None,
         device: DeviceLike = None,
     ):
         #: the device the mover serves (``cuda`` unless the caller names
         #: the CPU); raises without CUDA when not told ``device="cpu"``.
         self.device = resolve_device(device)
+        if execute is None:  # the card moves through the kernel only
+            execute = (stream_executor() if self.device.type == "cuda"
+                       else _execute_copy)
         if batch_size < 1:
             raise ValueError("batch_size >= 1")
         if drain_workers < 1:

@@ -25,8 +25,10 @@
 //    shard is only read for the rows it owns.  Skipping the add is exact:
 //    the fp32 sum starts at +0.0 and adding +/-0.0 changes nothing for a
 //    finite table.
-//  * Indices are clamped into [0, V) so a stray index cannot fault; the
-//    caller clamps already.
+//  * Indices are int32, as the TPU kernel takes them (4 bytes of traffic
+//    per lookup, not 8); the wrapper refuses tables of more than 2^31
+//    rows.  They are clamped into [0, V) so a stray index cannot fault;
+//    the caller clamps already.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -69,14 +71,14 @@ __device__ __forceinline__ void store_vec(T* p, const float (&acc)[VEC]) {
 
 template <typename T, int VEC>
 __global__ void embedding_reduce_kernel(const T* __restrict__ table,
-                                        const int64_t* __restrict__ idx,
+                                        const int32_t* __restrict__ idx,
                                         const T* __restrict__ w,
                                         T* __restrict__ out,
                                         int64_t V, int64_t D, int64_t B, int64_t K) {
   const int64_t b = (int64_t)blockIdx.x * blockDim.y + threadIdx.y;
   if (b >= B) return;
   const int64_t n_chunks = D / VEC;
-  const int64_t* bidx = idx + b * K;
+  const int32_t* bidx = idx + b * K;
   const T* bw = w + b * K;
   for (int64_t c = threadIdx.x; c < n_chunks; c += blockDim.x) {
     float acc[VEC];
@@ -109,7 +111,7 @@ __global__ void embedding_reduce_kernel(const T* __restrict__ table,
 }
 
 template <typename T, int VEC>
-void launch(const void* table, const int64_t* idx, const void* w, void* out,
+void launch(const void* table, const int32_t* idx, const void* w, void* out,
             int64_t V, int64_t D, int64_t B, int64_t K, cudaStream_t stream) {
   const int64_t n_chunks = D / VEC;
   int tx = 1;
@@ -127,7 +129,7 @@ void launch(const void* table, const int64_t* idx, const void* w, void* out,
 // dtype: 0 = float32, 1 = bfloat16 (table, weights and output share it).
 // vec: 1 for the scalar path, else 16 bytes per load (the wrapper checks
 // D and the pointers' alignment).  Returns cudaGetLastError().
-extern "C" int repro_embedding_reduce(const void* table, const int64_t* idx,
+extern "C" int repro_embedding_reduce(const void* table, const int32_t* idx,
                                       const void* w, void* out, int64_t V,
                                       int64_t D, int64_t B, int64_t K,
                                       int dtype, int vec, void* stream) {

@@ -118,14 +118,22 @@ def stream_handle(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def card_device(*tensors: torch.Tensor) -> Optional[torch.device]:
+def card_device(*tensors: torch.Tensor, device=None) -> Optional[torch.device]:
     """The CUDA device a kernel call runs on, or None for a CPU call.
 
-    A call is on the card when any tensor is on CUDA; its host tensors
-    must then be page-locked, which the kernels reach through unified
-    virtual addressing.  Unpinned host memory next to a CUDA tensor is an
-    error, not a reason to fall back."""
+    A call is on the card when any tensor is on CUDA or in pinned host
+    memory; with host tensors only it runs on ``device`` if that names a
+    card, else on the current one.  Its host tensors must be page-locked,
+    which the kernels reach through unified virtual addressing.  Unpinned
+    host memory next to a CUDA tensor is an error, not a reason to fall
+    back."""
     cuda = [t.device for t in tensors if t.is_cuda]
+    if not cuda and any(t.is_pinned() for t in tensors):
+        dev = torch.device("cuda" if device is None else device)
+        if dev.type != "cuda":
+            raise ValueError(f"pinned host tensors run on a card, not {dev}")
+        cuda = [dev if dev.index is not None
+                else torch.device("cuda", torch.cuda.current_device())]
     if not cuda:
         return None
     if any(d != cuda[0] for d in cuda):

@@ -11,6 +11,9 @@ _argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
              ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
+#: rows an int32 index addresses
+MAX_ROWS = 1 << 31
+
 
 def _lib():
     lib = common.load("embedding_reduce")
@@ -23,8 +26,9 @@ def _lib():
 def embedding_reduce(table: torch.Tensor, indices: torch.Tensor,
                      weights: torch.Tensor, device: torch.device) -> torch.Tensor:
     """Launch on ``device``'s current stream.  ``table`` lies in HBM or in
-    pinned host memory; ``indices`` (int64) and ``weights`` (table dtype)
-    are contiguous CUDA tensors of shape (B, K)."""
+    pinned host memory and has at most 2^31 rows; ``indices`` (read as
+    int32, as the TPU kernel reads them) and ``weights`` (table dtype) are
+    CUDA tensors of shape (B, K)."""
     if table.ndim != 2 or indices.ndim != 2 or weights.shape != indices.shape:
         raise ValueError(f"want table (V, D) and indices/weights (B, K); got "
                          f"{tuple(table.shape)}, {tuple(indices.shape)}, "
@@ -33,8 +37,11 @@ def embedding_reduce(table: torch.Tensor, indices: torch.Tensor,
         raise ValueError("indices and weights must be CUDA tensors")
     if not table.is_contiguous():
         raise ValueError("table must be contiguous")
+    if table.shape[0] > MAX_ROWS:
+        raise ValueError(f"table has {table.shape[0]} rows; int32 indices "
+                         f"address {MAX_ROWS}")
     code = common.dtype_code(table.dtype)
-    indices = indices.to(torch.int64).contiguous()
+    indices = indices.to(torch.int32).contiguous()
     weights = weights.to(table.dtype).contiguous()
     V, D = table.shape
     B, K = indices.shape

@@ -1,8 +1,9 @@
 """Public wrapper for the embedding-bag reduction.
 
-On the card (any CUDA tensor among the arguments) it launches the CUDA
-kernel or raises; the plain version runs only when every tensor lies on
-the CPU.  ``LAUNCHES`` counts kernel launches and nothing else."""
+On the card (any CUDA or pinned host tensor among the arguments) it
+launches the CUDA kernel or raises; the plain version runs only when
+every tensor lies in pageable host memory.  ``LAUNCHES`` counts kernel
+launches and nothing else."""
 from __future__ import annotations
 
 import torch

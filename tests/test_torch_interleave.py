@@ -420,6 +420,41 @@ def test_from_array_without_device_raises_without_cuda():
         TMover(t_v5e())
 
 
+@pytest.mark.cuda
+def test_card_moves_launch_stream_copy_with_or_without_mover():
+    """On the card every page move is the stream_copy kernel's output:
+    without a mover (HBM->pinned, pinned->pinned), through a mover's
+    default executor (pinned->HBM); the maps match the reference's and
+    every shard keeps its storage."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (pinned backend)")
+    from repro_torch.kernels.stream_copy import ops as sc
+    rng = np.random.default_rng(7)
+    x = rng.integers(-8, 9, size=(64 * 8, 4)).astype(np.float32)
+    names = ("ddr5-l8", "cxl-a", "cxl-b")
+    r, _ = _build(x, (names, (4, 2, 2)), 8, headroom=20)
+    t = TIT.from_array(torch.from_numpy(x), TPolicy.weighted(names, (4, 2, 2)),
+                       8, headroom=20, device="cuda")
+    assert t.backend == "pinned" and t.choose_gather_path(1 << 20) == "bucketed"
+    ptrs = [p.data_ptr() for p in t.parts]
+    steps = [lambda it, **kw: it.repartition_weights((0.3125, 0.25), **kw),
+             lambda it, **kw: it.drain_device("cxl-b", **kw)]
+    for step in steps:
+        sc.LAUNCHES.reset()
+        r = step(r, telemetry=RTel(), donate=True)
+        t = step(t, telemetry=TTel(), donate=True)
+        assert sc.LAUNCHES.count > 0
+        assert np.array_equal(_np(t.page_device), _np(r.page_device))
+        assert np.array_equal(_np(t.to_array()), x)
+    with TMover(t_paper3(), telemetry=TTel(), device="cuda") as mover:
+        assert mover.pipelined  # the card's default executor is the kernel
+        sc.LAUNCHES.reset()
+        t = t.repartition_weights((0.25, 0.0), mover=mover, donate=True)
+        assert sc.LAUNCHES.count == mover.descriptors_submitted > 0
+    assert np.array_equal(_np(t.to_array()), x)
+    assert [p.data_ptr() for p in t.parts] == ptrs
+
+
 def test_bf16_scatter_add_takes_the_bucketed_path():
     """Known divergence: the reference's numpy scatter cannot add
     bfloat16, so its non-donated ``add_rows`` on a bf16 tensor falls back

@@ -163,6 +163,21 @@ def test_stream_executor_on_host_payloads():
         mover.submit([d])  # closed
 
 
+def test_cpu_mover_copies_host_memory_only():
+    """A mover on the CPU takes the plain host copy by default and refuses
+    a move into card memory: on the card every move is the kernel's."""
+    topo = t_paper3()
+    src = torch.ones((8, 4))
+    with t_mv.BulkMover(topo, asynchronous=False, telemetry=TTel(),
+                        device="cpu") as m:
+        assert m._execute is t_mv._execute_copy and not m.pipelined
+        got = m.submit([t_mv.Descriptor("ddr5-l8", "cxl-a", src)])[0].result
+        assert torch.equal(got, src) and got.data_ptr() != src.data_ptr()
+        with pytest.raises(ValueError, match="stream_executor"):
+            m.submit([t_mv.Descriptor("ddr5-l8", "cxl-a", src,
+                                      dst=t_mv.PINNED)])
+
+
 def test_sync_async_equivalence_and_double_buffer():
     topo = t_paper3()
     payloads = [torch.full((128,), float(i)) for i in range(12)]
