@@ -1,0 +1,10 @@
+"""qwen1.5-32b [dense] — MHA (kv=40), QKV bias. [hf:Qwen/Qwen1.5-0.5B; hf]"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen1.5-32b", family="dense",
+    n_layers=64, d_model=5120, n_heads=40, n_kv_heads=40,
+    d_ff=27392, vocab=152064, head_dim=128,
+    qkv_bias=True, rope=True, rope_theta=1_000_000.0,
+    norm="rmsnorm", act="swiglu",
+)

@@ -15,11 +15,15 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.interleave import InterleavedTensor
 from repro_torch.core.policy import MemPolicy, PolicyKind
 from repro_torch.core.warmstart import WarmStartMemo
 from repro_torch.device import (DeviceLike, resolve_backend, resolve_device,
                                 shard_storage)
+from repro_torch.models.transformer import DenseParams
+from repro_torch.serving.kv_cache import TieredKVCache
+from repro_torch.serving.prefix_cache import PrefixBlock
 
 
 def tensor_from_numpy(array) -> torch.Tensor:
@@ -103,3 +107,73 @@ def table_from_numpy(table, policy: MemPolicy, page_rows: int, *,
 def memo_from_json(text: str) -> WarmStartMemo:
     """A warm-start memo written by either package."""
     return WarmStartMemo.from_json(text)
+
+
+def params_from_jax(cfg: ArchConfig, tree: dict, *,
+                    device: DeviceLike = None) -> DenseParams:
+    """The port's parameter module holding exactly the reference's dense
+    parameter tree (its leaves read through ``np.asarray``): ``embed``,
+    ``layers`` (stacked over a leading L axis), ``final_norm`` and, unless
+    the embeddings are tied, ``lm_head`` (stored transposed)."""
+    device = resolve_device(device)
+
+    def t(a) -> torch.Tensor:
+        return tensor_from_numpy(np.asarray(a)).to(device)
+
+    if cfg.tie_embeddings == ("lm_head" in tree):
+        raise ValueError(f"{cfg.name}: tie_embeddings={cfg.tie_embeddings} "
+                         f"but the tree {'has' if 'lm_head' in tree else 'lacks'}"
+                         f" lm_head")
+    layers = {group: {k: t(v) for k, v in leaves.items()}
+              for group, leaves in tree["layers"].items()}
+    if layers["ln1"]["scale"].shape[0] != cfg.n_layers:
+        raise ValueError("layer stack does not match cfg.n_layers")
+    return DenseParams(
+        t(tree["embed"]), layers,
+        {k: t(v) for k, v in tree["final_norm"].items()},
+        t(tree["lm_head"]) if "lm_head" in tree else None)
+
+
+def kv_cache_from_jax(cache, *, device: DeviceLike = None) -> TieredKVCache:
+    """A :class:`TieredKVCache` holding exactly a reference cache's state
+    (read through ``np.asarray``): the per-device pools (capacity padding
+    included), ``page_local``, ``pos_parts``, ``page_device``, ``lengths``
+    and the shared-prefix block.  Its memory follows from ``device``."""
+    device = resolve_device(device)
+    backend = resolve_backend(None, device)
+
+    def pool(i: int, a) -> torch.Tensor:
+        host = tensor_from_numpy(np.asarray(a))
+        out = torch.empty(tuple(host.shape), dtype=host.dtype,
+                          **shard_storage(i, backend, device))
+        return out.copy_(host)
+
+    def dev(a, dtype) -> torch.Tensor:
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    prefix = None
+    if cache.prefix is not None:
+        p = cache.prefix
+        prefix = PrefixBlock(
+            k=tensor_from_numpy(np.asarray(p.k)).to(device),
+            v=tensor_from_numpy(np.asarray(p.v)).to(device),
+            slot_pages=dev(p.slot_pages, torch.int32),
+            slot_shared=dev(p.slot_shared, torch.int32),
+            page_device=dev(p.page_device, torch.int32),
+            page_t=int(p.page_t))
+    page_dev = np.array(cache.page_device, np.int8)
+    page_local = np.array(cache.page_local, np.int32)
+    out = TieredKVCache(
+        k_parts=tuple(pool(i, a) for i, a in enumerate(cache.k_parts)),
+        v_parts=tuple(pool(i, a) for i, a in enumerate(cache.v_parts)),
+        lengths=dev(cache.lengths, torch.int32),
+        page_local=dev(page_local, torch.int32),
+        pos_parts=tuple(dev(p, torch.int32) for p in cache.pos_parts),
+        page_device=dev(page_dev, torch.int8),
+        page_t=int(cache.page_t),
+        device_names=tuple(cache.device_names),
+        slow_headroom=int(cache.slow_headroom),
+        prefix=prefix,
+        backend=backend,
+        device=device)
+    return out._with_host(page_dev, page_local)

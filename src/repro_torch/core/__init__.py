@@ -4,8 +4,10 @@ Demystifying CXL Memory (Sun et al., MICRO'23), ported to PyTorch and
 CUDA: tier characterization (tiers/perfmodel), placement policies
 (policy/planner/classifier), page interleaving (interleave), bulk
 movement (mover), capacity accounting (ledger), and the Caption
-controller (caption, warmstart).
+controller and its fleet-level arbiter (caption, warmstart, arbiter).
 """
+from repro_torch.core.arbiter import (ArbiterConfig, CaptionArbiter,
+                                      budgeted_config)
 from repro_torch.core.caption import (
     CaptionConfig,
     CaptionController,
@@ -42,6 +44,7 @@ from repro_torch.core.tiers import (
 from repro_torch.core.warmstart import WarmStartMemo
 
 __all__ = [
+    "ArbiterConfig", "CaptionArbiter", "budgeted_config",
     "CaptionConfig", "CaptionController", "EpochMetrics",
     "AccessProfile", "Boundedness", "classify",
     "InterleavedTensor", "CapacityError", "TierLedger",

@@ -30,7 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-KERNELS = ("embedding_reduce", "stream_copy")
+KERNELS = ("embedding_reduce", "stream_copy", "decode_attention")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -7,8 +7,9 @@ import torch
 
 from repro_torch.kernels import common
 
-_argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+             ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def _lib():
@@ -19,22 +20,38 @@ def _lib():
     return fn
 
 
+def row_strided(t: torch.Tensor) -> bool:
+    """A 2-D tensor whose rows are contiguous (any row stride)."""
+    return t.ndim == 2 and (t.stride(1) == 1 or t.shape[1] <= 1)
+
+
 def stream_copy(src: torch.Tensor, out: torch.Tensor,
                 device: torch.device) -> torch.Tensor:
     """Copy ``src`` into ``out`` (same shape, any of HBM or pinned host
     memory on either side) with the cast to ``out.dtype`` fused in,
-    launched on ``device``'s current stream."""
+    launched on ``device``'s current stream.  Both contiguous (one row of
+    ``numel`` elements), or both 2-D with contiguous rows (each with its
+    own row stride)."""
     if src.shape != out.shape:
         raise ValueError(f"shape mismatch {tuple(src.shape)} -> {tuple(out.shape)}")
-    if not (src.is_contiguous() and out.is_contiguous()):
-        raise ValueError("stream_copy needs contiguous tensors")
+    if src.is_contiguous() and out.is_contiguous():
+        rows, cols = 1, src.numel()
+        ss = ds = cols
+    elif row_strided(src) and row_strided(out):
+        (rows, cols), ss, ds = src.shape, src.stride(0), out.stride(0)
+    else:
+        raise ValueError("stream_copy needs contiguous tensors or 2-D "
+                         "tensors with contiguous rows")
     if src.dtype == out.dtype:
         s_code = d_code = 0
     else:
         s_code, d_code = common.dtype_code(src.dtype), common.dtype_code(out.dtype)
-    vec = int(src.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
-    err = _lib()(src.data_ptr(), out.data_ptr(), src.numel(), s_code, d_code,
-                 src.element_size(), vec, common.stream_handle(device))
+    item = src.element_size()
+    # every row starts on a 16-byte boundary on both sides
+    vec = int(all(x % 16 == 0 for x in (src.data_ptr(), out.data_ptr(),
+                                         ss * item, ds * out.element_size())))
+    err = _lib()(src.data_ptr(), out.data_ptr(), rows, cols, ss, ds, s_code,
+                 d_code, item, vec, common.stream_handle(device))
     common.check(err, "stream_copy launch")
     return out
 

@@ -155,6 +155,53 @@ def test_stream_copy_into_given_out():
     assert torch.equal(t_sc_ref.stream_copy(x), x)
 
 
+def test_stream_copy_row_strided_windows_take_the_plain_version():
+    """A column window of a wider buffer on each side (a KV run slab's
+    layout): on the CPU the plain copy fills exactly the window."""
+    x = torch.arange(60.0).reshape(5, 12)
+    dst = torch.zeros((5, 10), dtype=torch.bfloat16)
+    t_sc.stream_copy(x[:, 2:9], out=dst[:, 1:8])
+    assert torch.equal(dst[:, 1:8], x[:, 2:9].to(torch.bfloat16))
+    dst[:, 1:8] = 0
+    assert not dst.any()
+
+
+def _launch_args(monkeypatch, src, out):
+    """The arguments ``stream_copy``'s wrapper would pass to the kernel."""
+    from repro_torch.kernels.stream_copy import kernel as sc_kernel
+    calls = []
+    monkeypatch.setattr(sc_kernel, "_lib",
+                        lambda: lambda *a: calls.append(a) or 0)
+    monkeypatch.setattr(common, "stream_handle", lambda device: None)
+    sc_kernel.stream_copy(src, out, torch.device("cpu"))
+    (args,) = calls
+    return args[2:10]  # rows, cols, ss, ds, dtype codes, itemsize, vec
+
+
+@pytest.mark.parametrize("d_off,vec", [(0, 1), (1, 0)])
+def test_stream_copy_launch_layout_of_a_pool_run_slab(monkeypatch, d_off,
+                                                      vec):
+    """A KV run slab ``pool[:, b, rows].flatten(1)`` is one row per layer,
+    rows the pool's layer stride apart; the 16-byte vector body runs only
+    when every row starts aligned on both sides."""
+    L, B, T, K, hd = 3, 4, 16, 2, 8
+    pool = torch.zeros((L, B, T, K, hd), dtype=torch.bfloat16)
+    slab = pool[:, 1, 8:16].flatten(1)
+    buf = torch.empty((L, slab.shape[1] + 8), dtype=torch.float32)
+    out = buf[:, d_off:d_off + slab.shape[1]]
+    assert _launch_args(monkeypatch, slab, out) == (
+        L, 8 * K * hd, B * T * K * hd, slab.shape[1] + 8, 1, 0, 2, vec)
+
+
+def test_stream_copy_launch_layout_of_a_contiguous_slab(monkeypatch):
+    """A contiguous slab of any shape is one row of all its elements."""
+    x = torch.zeros((5, 12))
+    assert _launch_args(monkeypatch, x, torch.empty((5, 12))) == (
+        1, 60, 60, 60, 0, 0, 4, 1)
+    assert _launch_args(monkeypatch, x.view(-1)[1:],
+                        torch.empty(59))[-1] == 0
+
+
 # -- wrappers: CPU dispatch, counters, build --------------------------------------
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     t_er.LAUNCHES.reset()
@@ -219,6 +266,25 @@ def test_stream_copy_kernel_matches_plain(cuda, route):
             t_sc.stream_copy(src, out=out)
             torch.cuda.synchronize()
             assert torch.equal(out.cpu(), host.to(odt))
+    # row-strided: column windows of wider buffers, rows aligned to 16
+    # bytes (vector body) and not (scalar body)
+    for off in (0, 1):
+        for sdt, odt in ((torch.bfloat16, torch.bfloat16),
+                         (torch.float32, torch.bfloat16),
+                         (torch.bfloat16, torch.float32)):
+            host = torch.randn((30, 1032)).to(sdt)
+            src = host.to(cuda) if src_mem == "hbm" else host.pin_memory()
+            dst = (torch.zeros((30, 1040), dtype=odt, device=cuda)
+                   if dst_mem == "hbm"
+                   else torch.zeros((30, 1040), dtype=odt, pin_memory=True))
+            t_sc.stream_copy(src[:, off:off + 1000],
+                             out=dst[:, off:off + 1000])
+            torch.cuda.synchronize()
+            got = dst.cpu()
+            assert torch.equal(got[:, off:off + 1000],
+                               host[:, off:off + 1000].to(odt))
+            got[:, off:off + 1000] = 0
+            assert not got.any()
 
 
 @pytest.mark.cuda
@@ -234,3 +300,4 @@ def test_embedding_reduce_kernel_skips_zero_weight_rows(cuda):
     plain = t_er_ref.embedding_reduce(table, idx, w)
     assert torch.equal(got.cpu(), torch.full((1, 8), 2.0))
     assert torch.isnan(plain).all()
+
