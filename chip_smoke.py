@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one H100.
 
-    python3 chip_smoke.py            # both slices: DLRM table, then serving
+    python3 chip_smoke.py            # the three slices: DLRM table, serving, rwkv
     python3 chip_smoke.py --sweep    # and a static slow-fraction sweep
 
 It needs a CUDA card and the checkout's ``src/`` beside it, and fails
 (non-zero exit, no result line) otherwise.  Phases, each raising on a
 wrong result or a missing kernel launch:
 
-1. device: card name and power limit; build the three CUDA kernels from
+1. device: card name and power limit; build the four CUDA kernels from
    ``src/repro_torch/csrc`` (one ``nvcc`` each, in parallel).
 2. ``embedding_reduce`` against its plain version: fp32 and bf16 tables in
    HBM and in pinned host memory, duplicate indices, zero weights.
@@ -24,7 +24,8 @@ wrong result or a missing kernel launch:
    measures bags/s at fixed slow fractions (not part of the main path).
 5. ``decode_attention`` against its plain version, both forms, fp32 and
    bf16, K/V in HBM and in pinned host memory, ragged lengths (1 and T),
-   a fully masked partition row; the append scatter likewise; then the
+   a fully masked partition row, stablelm-12b's head dim 160; the append
+   scatter likewise; then the
    partial form's time at the serving shape against its plain version,
    ``scaled_dot_product_attention`` (timed only) and its byte bound.
 6. the serving slice: starcoder2-3b at full width and depth, bf16, random
@@ -39,6 +40,21 @@ wrong result or a missing kernel launch:
    every slot's written rows are read back bit-equal through its page
    map.
    ``--profile`` then shows where a decode step's time goes.
+7. ``wkv6`` against its plain version: the shapes of the reference's
+   kernel tests in fp32, T = 1 and T = 1000, the rwkv slice's prefill
+   shape (16 x 1024 x 64 heads x 64, bf16 r/k/v, fp32 w, nonzero u and
+   starting state) and decode shape (T = 1), the state carried across two
+   calls, ``state_out`` aliasing ``state``; then its time at both shapes
+   against its plain version and its byte bound.
+8. the rwkv slice: rwkv6-7b at full width and depth, bf16, random weights
+   from a seeded generator; the recurrent state placed by the planner
+   (pinned to HBM).  A prefill of 16 prompts of 1024 tokens, then 64
+   greedy decode steps over the recurrent state, with counts reset right
+   before and read right after (32 x 65 ``wkv6`` launches).  The prefill's
+   last logits and one decode step are held against the same with the
+   plain recurrence, and a decode replay of 8 tokens against ``forward``
+   over the prompt and those tokens.  ``--profile`` also profiles a few of
+   its decode steps.
 
 Prints the card line, per-phase lines, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.
@@ -46,6 +62,7 @@ last, ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -566,7 +583,9 @@ def phase_decode_attention(stats: dict) -> None:
     dev = torch.device(DEVICE)
     g = torch.Generator(device="cpu").manual_seed(5)
     worst, n = 0.0, 0
-    shapes = DA_SWEEP + ((SERVE_B, SERVE_H, SERVE_K, SERVE_HD, 1024),)
+    shapes = DA_SWEEP + ((SERVE_B, SERVE_H, SERVE_K, SERVE_HD, 1024),
+                         (2, 32, 8, 160, 256),  # stablelm-12b's heads
+                         (2, 16, 1, 160, 96))  # hd 160 at 16 heads a group
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
         for mem in ("hbm", "pinned"):
             for B, H, K, hd, T in shapes:
@@ -665,8 +684,8 @@ def phase_decode_attention(stats: dict) -> None:
     ops.APPEND_LAUNCHES.reset()
 
 
-def profile_steps(eng, n: int = 4) -> None:
-    """Where a long-context decode step's time goes: wall ms per step, the
+def profile_steps(step, label: str, n: int = 4) -> None:
+    """Where a decode step's time goes: wall ms per ``step()``, the
     device's time and busy share in a profiled window (the profiler slows
     the host), the kernels by device time, and the host functions by own
     time under cProfile (which slows Python calls more)."""
@@ -681,7 +700,7 @@ def profile_steps(eng, n: int = 4) -> None:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n):
-            eng.step()
+            step()
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / n * 1e3
 
@@ -692,12 +711,12 @@ def profile_steps(eng, n: int = 4) -> None:
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
            and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in dev)
-    log(f"phase6/profile,steps={n},step_ms={step_ms:.2f},"
+    log(f"{label}/profile,steps={n},step_ms={step_ms:.2f},"
         f"profiled_step_ms={prof_ms:.2f},"
         f"device_ms_per_step={busy_us / n / 1e3:.3f},"
         f"device_busy_share={busy_us / n / 1e3 / prof_ms:.3f}")
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:10]:
-        log(f"phase6/profile/kernel,ms_per_step="
+        log(f"{label}/profile/kernel,ms_per_step="
             f"{e.self_device_time_total / n / 1e3:.4f},"
             f"calls_per_step={e.count / n:.0f},name={e.key[:70]}")
     pr = cProfile.Profile()
@@ -706,10 +725,10 @@ def profile_steps(eng, n: int = 4) -> None:
     pr.disable()
     out = io.StringIO()
     pstats.Stats(pr, stream=out).sort_stats("tottime").print_stats(14)
-    log(f"phase6/profile/host,cprofile_step_ms={cprof_ms:.2f}")
+    log(f"{label}/profile/host,cprofile_step_ms={cprof_ms:.2f}")
     for line in out.getvalue().splitlines():
         if line.strip()[:1].isdigit():
-            log("phase6/profile/host," + " ".join(line.split()))
+            log(f"{label}/profile/host," + " ".join(line.split()))
 
 
 def uncounted(fn):
@@ -719,8 +738,9 @@ def uncounted(fn):
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.embedding_reduce import ops as er_ops
     from repro_torch.kernels.stream_copy import ops as sc_ops
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
     counters = (da_ops.LAUNCHES, da_ops.APPEND_LAUNCHES, er_ops.LAUNCHES,
-                sc_ops.LAUNCHES)
+                sc_ops.LAUNCHES, wkv_ops.LAUNCHES)
     saved = [c.count for c in counters]
     try:
         return fn()
@@ -734,23 +754,13 @@ def check_step_logits(eng, params) -> dict:
     same step with plain attention on the card: finite logits, max abs
     error under 0.5, greedy tokens equal on every active slot whose top-2
     gap exceeds 4x that error.  Neither step is kept."""
-    import torch
     from repro_torch.serving.kv_cache import tiered_decode_step
     toks = eng._current_tokens()
     active = [i for i, r in enumerate(eng.slots) if r is not None]
     got, _ = tiered_decode_step(eng.cfg, params, eng.cache, toks)
     want, _ = tiered_decode_step(eng.cfg, params, eng.cache, toks,
                                  attend=_plain_attend)
-    torch.cuda.synchronize()
-    got, want = got[active].float(), want[active].float()
-    err = float((got - want).abs().max())
-    top2 = torch.topk(want, 2, dim=-1).values
-    clear = (top2[:, 0] - top2[:, 1]) > 4 * err
-    same = torch.argmax(got, -1) == torch.argmax(want, -1)
-    assert torch.isfinite(got).all() and err < 0.5, err
-    assert bool(same[clear].all()), (same, clear)
-    return {"err": err, "greedy_equal": int(same.all()),
-            "compared": f"{int(clear.sum())}/{len(active)}"}
+    return check_greedy(got[active], want[active], "serving step", 0.5)
 
 
 def check_run_slabs(cache) -> None:
@@ -961,10 +971,358 @@ def phase_serving(stats: dict, profile: bool) -> dict:
         log(f"phase6/kv_read_back,slots={SERVE_B},positions={SERVE_VALID},"
             f"bit_equal=1,written_pages_in_pinned_pool={slow_pages}")
         if profile:
-            profile_steps(eng)
+            profile_steps(eng.step, "phase6")
     finally:
         mover.close()
     return {"launches": launches}
+
+
+WKV_SWEEP = ((2, 64, 2, 16), (1, 128, 4, 32), (2, 32, 1, 64))  # tests/test_kernels.py:106-108
+RWKV_B, RWKV_T, RWKV_STEPS, RWKV_REPLAY = 16, 1024, 64, 8
+RWKV_H, RWKV_HD = 64, 64  # rwkv6-7b: d_model 4096 in heads of 64
+#: fp32 logits of the rwkv slice against the plain recurrence and the
+#: forward replay (other GEMM shapes): summation order through 32 layers
+RWKV_FP32_BOUND = 1e-2
+#: wkv6 against its plain version.  fp32 inputs: the reference's 1e-4.
+#: bf16 r/k/v: both sides get the same bf16 values and compute in fp32,
+#: so they differ by summation order only and the same tolerance holds.
+WKV_TOL = dict(atol=1e-4, rtol=1e-5)
+
+
+def _wkv_inputs(g, B, T, H, hd, rkv_dtype):
+    """r, k, v, w, u, state on the card, drawn as the reference's kernel
+    tests draw them (w in (0.5, 1)), with a nonzero u and starting state."""
+    import torch
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=DEVICE)
+
+    r, k, v = ((randn(B, T, H, hd) * s).to(rkv_dtype) for s in (0.5, 0.5, 1))
+    w = torch.sigmoid(randn(B, T, H, hd)) * 0.5 + 0.5
+    return r, k, v, w, randn(H, hd) * 0.1, randn(B, H, hd, hd) * 0.1
+
+
+def check_wkv(r, k, v, w, u, s0, *, alias: bool = False) -> float:
+    """``wkv6`` through its wrapper against the plain version on the card:
+    y and the final state; with ``alias`` the state is updated in place.
+    Returns the max abs error."""
+    import torch
+    from repro_torch.kernels.wkv6 import ops, ref
+    state = s0.clone()
+    y, s = ops.wkv6(r, k, v, w, u, state, state_out=state if alias else None)
+    y_p, s_p = ref.wkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert (s is state) == alias
+    torch.testing.assert_close(y, y_p, **WKV_TOL)
+    torch.testing.assert_close(s, s_p, **WKV_TOL)
+    return max(float((y - y_p).abs().max()), float((s - s_p).abs().max()))
+
+
+def wkv_bound(r, w) -> tuple[float, str]:
+    """The least time for one call (ms) and what sets it: r, k, v, w read
+    and y written once, the state read and written once (u is
+    negligible), over the HBM rate; or ~4 fp32 operations per
+    (b, t, h, i, j) over the fp32 rate."""
+    B, T, H, hd = r.shape
+    n = B * T * H * hd
+    nbytes = 3 * n * r.element_size() + n * w.element_size() + 4 * n \
+        + 2 * B * H * hd * hd * 4
+    by_bytes, by_ops = nbytes / HBM_BW, 4 * n * hd / FP32_FLOPS
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def phase_wkv6(stats: dict) -> None:
+    """Kernel == plain version on every listed shape; then its time at the
+    rwkv slice's prefill and decode shapes."""
+    import torch
+    from repro_torch.kernels.wkv6 import ops, ref
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    f32, bf16 = torch.float32, torch.bfloat16
+    B, T, H, hd = RWKV_B, RWKV_T, RWKV_H, RWKV_HD
+    cases = [(shape, f32) for shape in WKV_SWEEP] + [
+        ((2, 1, 4, 64), f32), ((2, 1000, 4, 64), f32),
+        ((2, 1, 4, 64), bf16), ((2, 1000, 4, 64), bf16),
+        ((B, T, H, hd), bf16), ((B, 1, H, hd), bf16)]
+    worst = 0.0
+    for shape, dtype in cases:
+        err = check_wkv(*_wkv_inputs(g, *shape, dtype))
+        worst = max(worst, err)
+        log(f"phase7/wkv6/{str(dtype)[6:]}/B{shape[0]}xT{shape[1]}xH{shape[2]}"
+            f"xhd{shape[3]},max_abs_err={err:.3g}")
+    # the state carried across two calls (an odd split) against one call
+    for shape, cut in (((1, 64, 2, 16), 32), ((B, T, H, hd), T // 2 + 1)):
+        r, k, v, w, u, s0 = _wkv_inputs(g, *shape, bf16)
+        y_a, s_a = ops.wkv6(r[:, :cut], k[:, :cut], v[:, :cut], w[:, :cut],
+                            u, s0)
+        y_b, s_b = ops.wkv6(r[:, cut:], k[:, cut:], v[:, cut:], w[:, cut:],
+                            u, s_a, state_out=s_a)
+        y_p, s_p = ref.wkv6(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        y = torch.cat([y_a, y_b], 1)
+        torch.testing.assert_close(y, y_p, **WKV_TOL)
+        torch.testing.assert_close(s_b, s_p, **WKV_TOL)
+        err = max(float((y - y_p).abs().max()), float((s_b - s_p).abs().max()))
+        worst = max(worst, err)
+        log(f"phase7/wkv6/state_carry/B{shape[0]}xT{shape[1]}xH{shape[2]}"
+            f"xhd{shape[3]},split={cut},max_abs_err={err:.3g}")
+    # state_out aliasing state, at the decode and prefill shapes
+    for t in (1, T):
+        err = check_wkv(*_wkv_inputs(g, B, t, H, hd, bf16), alias=True)
+        worst = max(worst, err)
+        log(f"phase7/wkv6/alias/B{B}xT{t}xH{H}xhd{hd},max_abs_err={err:.3g}")
+    for t, label in ((T, "prefill"), (1, "decode")):
+        # At T = 1 the state (16.8 MB in, 16.8 MB out) would stay in the
+        # 50 MB L2 between back-to-back calls, where on the path a whole
+        # step's weights pass between two calls of one layer: rotate
+        # through four sets of inputs, 134 MB in all.
+        sets = [_wkv_inputs(g, B, t, H, hd, bf16)
+                for _ in range(1 if t > 1 else 4)]
+        outs = [torch.empty_like(x[5]) for x in sets]
+        turn = [0]
+
+        def call(fn, **kw):
+            i = turn[0] = (turn[0] + 1) % len(sets)
+            return fn(*sets[i], **{k: v[i] for k, v in kw.items()})
+
+        k_ms = time_ms(lambda: call(ops.wkv6, state_out=outs),
+                       queue_ahead=True)
+        p_ms = time_ms(lambda: call(ref.wkv6), iters=2 if t > 1 else 12,
+                       warmup=1, queue_ahead=True)
+        bound, bound_by = wkv_bound(sets[0][0], sets[0][3])
+        if label == "prefill":  # the kernels line's shape
+            stats["wkv"] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+                            "bound_by": bound_by}
+        log(f"phase7/wkv6/{label}_shape,B{B}xT{t}xH{H}xhd{hd},ms={k_ms:.4f},"
+            f"plain_ms={p_ms:.4f},bound_ms={bound:.4f},bound_by={bound_by},"
+            f"bound_share={bound / k_ms:.3f},library_ms=none")
+    log(f"phase7/wkv6/sweep,cases={len(cases) + 4},max_abs_err={worst:.3g}")
+    stats["wkv"]["err"] = worst
+    ops.LAUNCHES.reset()
+
+
+def check_greedy(got, want, what: str, bound=None) -> dict:
+    """Finite logits, max abs error under ``bound`` (when given), greedy
+    tokens equal on every row whose top-2 gap (in ``want``) exceeds 4x
+    that error."""
+    import torch
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    top2 = torch.topk(want, 2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 4 * err
+    same = torch.argmax(got, -1) == torch.argmax(want, -1)
+    assert bool(torch.isfinite(got).all()), what
+    assert bound is None or err < bound, (what, err, bound)
+    assert bool(same[clear].all()), (what, same, clear)
+    return {"err": err, "greedy_equal": int(same.all()),
+            "compared": f"{int(clear.sum())}/{clear.numel()}",
+            "logits_std": float(want.std())}
+
+
+def checked_wkv(errors: list):
+    """A ``wkv=`` function that runs the kernel and the plain version on
+    the same inputs (the model's own, layer by layer), holds the kernel's
+    y and state to the plain ones and passes the plain ones on.  Both sum
+    in fp32 in other orders, so the tolerance is the fp32 one scaled by
+    the largest magnitude; ``errors`` gets each call's largest error
+    relative to that magnitude."""
+    import torch
+    from repro_torch.kernels.wkv6 import ops, ref
+
+    def wkv(r, k, v, w, u, state, *, state_out=None):
+        y, s = ops.wkv6(r, k, v, w, u, state)
+        y_p, s_p = ref.wkv6(r, k, v, w, u, state, state_out=state_out)
+        rel = 0.0
+        for got, want in ((y, y_p), (s, s_p)):
+            scale = max(1.0, float(want.abs().max()))
+            torch.testing.assert_close(got, want, atol=1e-4 * scale,
+                                       rtol=1e-5)
+            rel = max(rel, float((got - want).abs().max()) / scale)
+        errors.append(rel)
+        return y_p, s_p
+
+    return wkv
+
+
+def place_rwkv_state(cfg, param_bytes: int):
+    """The planner's placement of the slice's buffers on the card: the
+    weights (hard-pinned: this slice serves them from HBM) and the
+    recurrent state, which its class pins to the fast tier."""
+    from repro_torch.core import h100_topology
+    from repro_torch.core.classifier import AccessProfile
+    from repro_torch.core.planner import BufferReq, plan
+    from repro_torch.core.policy import BufferClass
+    B, L = RWKV_B, cfg.n_layers
+    state_bytes = L * B * RWKV_H * RWKV_HD * RWKV_HD * 4
+    # a decode step: every weight read once; the state read and written
+    # once, one dependent update per token
+    compute_s = 2 * param_bytes / 2 * B / 989e12
+    reqs = [
+        BufferReq("params", BufferClass.PARAMS, param_bytes,
+                  AccessProfile(param_bytes, 0, dependent_chain=1,
+                                parallelism=1024, granularity=4 << 20,
+                                compute_seconds=compute_s), pin_fast=True),
+        BufferReq("recurrent_state", BufferClass.RECURRENT_STATE, state_bytes,
+                  AccessProfile(state_bytes, state_bytes,
+                                dependent_chain=RWKV_T,
+                                parallelism=B * RWKV_H,
+                                granularity=RWKV_HD * RWKV_HD * 4,
+                                compute_seconds=compute_s)),
+    ]
+    p = plan(reqs, h100_topology(), compute_seconds=compute_s)
+    d = p.decisions["recurrent_state"]
+    assert d.slow_fraction == 0.0 and "pinned" in d.reason, d
+    assert p.decisions["params"].slow_fraction == 0.0
+    log(f"phase8/placement,state_bytes={state_bytes},"
+        f"state_tier={d.policy.tiers[0]},state_slow_fraction="
+        f"{d.slow_fraction},state_reason={d.reason},"
+        f"state_boundedness={d.boundedness.value},param_bytes={param_bytes}")
+    return state_bytes
+
+
+def phase_rwkv(stats: dict, profile: bool) -> dict:
+    """rwkv6-7b at full width and depth: a prefill, then greedy decode
+    steps over the recurrent state, every WKV recurrence through wkv6."""
+    import torch
+    from repro_torch.kernels.wkv6 import ops as wkv_ops, ref as wkv_ref
+    from repro_torch.models import registry
+    dev = torch.device(DEVICE)
+    gc.collect()
+    torch.cuda.empty_cache()
+    arch = registry.get("rwkv6-7b")
+    cfg, mod = arch.cfg, arch.module
+    assert (cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim) == (
+        RWKV_H, RWKV_HD)
+    t0 = time.perf_counter()
+    params = mod.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                      device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    log(f"phase8/model,arch={cfg.name},layers={cfg.n_layers},"
+        f"d_model={cfg.d_model},heads={RWKV_H}x{RWKV_HD},d_ff={cfg.d_ff},"
+        f"vocab={cfg.vocab_padded},params={n_params},"
+        f"param_count_analytic={cfg.param_count()},param_bytes={param_bytes},"
+        f"init_s={time.perf_counter() - t0:.2f}")
+    state_bytes = place_rwkv_state(cfg, param_bytes)
+    B, T, steps, L = RWKV_B, RWKV_T, RWKV_STEPS, cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab, (B, T), generator=gen, device=dev)
+
+    def prefill(tokens, p=params, **kw):
+        logits, states = mod.forward(cfg, p, tokens, return_states=True,
+                                     last_only=True, **kw)
+        cache = dict(zip(("tm", "cm", "wkv"), states),
+                     len=torch.full((B,), tokens.shape[1], dtype=torch.int32,
+                                    device=dev))
+        return logits[:, -1], cache
+
+    # warm-up (cuBLAS heuristics, the kernel library's first load)
+    _, cache = prefill(prompt[:, :32])
+    for i in range(2):
+        mod.decode_step(cfg, params, cache, prompt[:, i])
+    del cache
+    torch.cuda.synchronize()
+
+    # the main path: counts reset right before, read right after
+    wkv_ops.LAUNCHES.reset()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    logits, cache = prefill(prompt)
+    ev[1].record()
+    first = logits
+    tok = torch.argmax(logits, -1)
+    generated = [tok]
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    bad += (~torch.isfinite(logits)).sum()
+    for _ in range(steps):
+        logits, cache = mod.decode_step(cfg, params, cache, tok)
+        bad += (~torch.isfinite(logits)).sum()
+        tok = torch.argmax(logits, -1)
+        generated.append(tok)
+    ev[2].record()
+    ev[2].synchronize()
+    launches = wkv_ops.LAUNCHES.count
+    assert launches == L * (1 + steps), launches
+    assert int(bad) == 0, f"{int(bad)} non-finite logits"
+    assert cache["wkv"].device.type == dev.type
+    assert cache["wkv"].numel() * 4 == state_bytes
+    assert cache["len"].tolist() == [T + steps] * B
+    prefill_ms, decode_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    log(f"phase8/serve,batch={B},prompt={T},new_tokens={steps},"
+        f"prefill_ms={prefill_ms:.2f},"
+        f"prefill_tokens_per_s={B * T / (prefill_ms * 1e-3):.1f},"
+        f"decode_ms_per_step={decode_ms / steps:.3f},"
+        f"decode_tokens_per_s={B * steps / (decode_ms * 1e-3):.1f},"
+        f"wkv6_launches={launches},logits_finite=1,"
+        f"peak_mem_bytes={torch.cuda.max_memory_allocated()}")
+
+    extra = torch.stack(generated[:RWKV_REPLAY], 1)
+
+    def replay(p):
+        """Decode replay against forward over the prompt and 8 tokens:
+        (the prefill's and 8 steps' logits, forward's at those places)."""
+        full = mod.forward(cfg, p, torch.cat([prompt, extra], 1))
+        logits, c = prefill(prompt, p)
+        outs = [logits]
+        for i in range(RWKV_REPLAY):
+            logits, c = mod.decode_step(cfg, p, c, extra[:, i])
+            outs.append(logits)
+        return torch.stack(outs, 1), full[:, T - 1:]
+
+    def checks():
+        res = {}
+        # the prefill's last logits against the plain recurrence; every
+        # layer's kernel call held to the plain one on the path's inputs
+        pre_errs, step_errs = [], []
+        plain, _ = prefill(prompt, wkv=checked_wkv(pre_errs))
+        res["prefill_vs_plain"] = check_greedy(first, plain, "prefill")
+        # one decode step from where the run stopped, kernel vs plain
+        a = {k: v.clone() for k, v in cache.items()}
+        b = {k: v.clone() for k, v in cache.items()}
+        got, _ = mod.decode_step(cfg, params, a, tok)
+        want, _ = mod.decode_step(cfg, params, b, tok,
+                                  wkv=checked_wkv(step_errs))
+        res["step_vs_plain"] = check_greedy(got, want, "decode step")
+        res["replay_vs_forward"] = check_greedy(*replay(params), "replay")
+        assert len(pre_errs) == len(step_errs) == L
+        log(f"phase8/wkv6_per_layer,layers={L},prefill_max_rel_err="
+            f"{max(pre_errs):.3g},step_max_rel_err={max(step_errs):.3g}")
+        # The same weights in fp32: bf16 rounding no longer hides a wrong
+        # result, so the logits are held to a bound.
+        p32 = mod.RwkvParams(
+            params.embed.float(),
+            {g: {k: v.float() for k, v in grp.items()}
+             for g, grp in params.layers.items()},
+            {k: v.float() for k, v in params.final_norm.items()},
+            params.lm_head.float())
+        got, _ = prefill(prompt, p32)
+        want, _ = prefill(prompt, p32, wkv=wkv_ref.wkv6)
+        res["fp32/prefill_vs_plain"] = check_greedy(got, want, "fp32 prefill",
+                                                    RWKV_FP32_BOUND)
+        res["fp32/replay_vs_forward"] = check_greedy(
+            *replay(p32), "fp32 replay", RWKV_FP32_BOUND)
+        return res
+
+    for name, res in uncounted(checks).items():
+        log(f"phase8/{name},logits_max_abs_err={res['err']:.4g},"
+            f"logits_std={res['logits_std']:.4g},"
+            f"greedy_equal={res['greedy_equal']},"
+            f"greedy_compared={res['compared']}")
+    gc.collect()
+    if profile:
+        state = {"cache": cache, "tok": tok}
+
+        def one_step():
+            logits, state["cache"] = mod.decode_step(cfg, params,
+                                                     state["cache"],
+                                                     state["tok"])
+            state["tok"] = torch.argmax(logits, -1)
+
+        profile_steps(one_step, "phase8")
+    return {"launches": {"wkv6": launches},
+            "prefill_tokens_per_s": B * T / (prefill_ms * 1e-3),
+            "decode_tokens_per_s": B * steps / (decode_ms * 1e-3)}
 
 
 def main(argv=None) -> int:
@@ -975,9 +1333,9 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep", action="store_true",
                     help="after the walk, measure bags/s at fixed fractions")
     ap.add_argument("--profile", action="store_true",
-                    help="after the serving walk, profile a few decode "
-                         "steps (device time by kernel, host time by "
-                         "function)")
+                    help="after the serving walk and the rwkv run, profile "
+                         "a few decode steps of each (device time by "
+                         "kernel, host time by function)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -996,7 +1354,9 @@ def main(argv=None) -> int:
     er, sc = res["er"], res["sc"]
     phase_decode_attention(stats)
     serve = phase_serving(stats, args.profile)
-    da = stats["da"]
+    phase_wkv6(stats)
+    rwkv = phase_rwkv(stats, args.profile)
+    da, wkv = stats["da"], stats["wkv"]
     kernels = [
         {"name": "embedding_reduce", "route": "cuda",
          "source": "src/repro_torch/csrc/embedding_reduce.cu",
@@ -1020,6 +1380,13 @@ def main(argv=None) -> int:
          "max_abs_err": da["err"], "ms": da["ms"], "plain_ms": da["plain_ms"],
          "bound_ms": da["bound_ms"], "bound_by": "bytes",
          "library_ms": da["library_ms"]},
+        {"name": "wkv6", "route": "cuda",
+         "source": "src/repro_torch/csrc/wkv6.cu",
+         "replaces": "src/repro/kernels/wkv6/kernel.py:55",
+         "launches": rwkv["launches"]["wkv6"],
+         "max_abs_err": wkv["err"], "ms": wkv["ms"],
+         "plain_ms": wkv["plain_ms"], "bound_ms": wkv["bound_ms"],
+         "bound_by": wkv["bound_by"], "library_ms": None},
     ]
     print(card["card"])
     print(json.dumps({"kernels": kernels}))

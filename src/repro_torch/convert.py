@@ -21,6 +21,7 @@ from repro_torch.core.policy import MemPolicy, PolicyKind
 from repro_torch.core.warmstart import WarmStartMemo
 from repro_torch.device import (DeviceLike, resolve_backend, resolve_device,
                                 shard_storage)
+from repro_torch.models.rwkv import RwkvParams
 from repro_torch.models.transformer import DenseParams
 from repro_torch.serving.kv_cache import TieredKVCache
 from repro_torch.serving.prefix_cache import PrefixBlock
@@ -111,11 +112,14 @@ def memo_from_json(text: str) -> WarmStartMemo:
 
 def params_from_jax(cfg: ArchConfig, tree: dict, *,
                     device: DeviceLike = None) -> DenseParams:
-    """The port's parameter module holding exactly the reference's dense
+    """The port's parameter module holding exactly the reference's
     parameter tree (its leaves read through ``np.asarray``): ``embed``,
     ``layers`` (stacked over a leading L axis), ``final_norm`` and, unless
-    the embeddings are tied, ``lm_head`` (stored transposed)."""
+    the embeddings are tied, ``lm_head`` (stored transposed).  An ``ssm``
+    config's tree becomes :class:`RwkvParams`, any other a
+    :class:`DenseParams`."""
     device = resolve_device(device)
+    cls = RwkvParams if cfg.family == "ssm" else DenseParams
 
     def t(a) -> torch.Tensor:
         return tensor_from_numpy(np.asarray(a)).to(device)
@@ -128,7 +132,7 @@ def params_from_jax(cfg: ArchConfig, tree: dict, *,
               for group, leaves in tree["layers"].items()}
     if layers["ln1"]["scale"].shape[0] != cfg.n_layers:
         raise ValueError("layer stack does not match cfg.n_layers")
-    return DenseParams(
+    return cls(
         t(tree["embed"]), layers,
         {k: t(v) for k, v in tree["final_norm"].items()},
         t(tree["lm_head"]) if "lm_head" in tree else None)
@@ -177,3 +181,11 @@ def kv_cache_from_jax(cache, *, device: DeviceLike = None) -> TieredKVCache:
         backend=backend,
         device=device)
     return out._with_host(page_dev, page_local)
+
+
+def rwkv_cache_from_jax(cache: dict, *, device: DeviceLike = None) -> dict:
+    """An rwkv decode cache (``{"tm", "cm", "wkv", "len"}``) holding
+    exactly a reference cache's arrays, dtypes included."""
+    device = resolve_device(device)
+    return {k: tensor_from_numpy(np.asarray(cache[k])).to(device)
+            for k in ("tm", "cm", "wkv", "len")}

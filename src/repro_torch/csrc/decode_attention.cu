@@ -117,10 +117,12 @@ decode_kernel(Args a) {
   constexpr int QD = HD / 4;                 // quads of one row
   constexpr int NG = THREADS / QD;           // head groups of the P·V pass
   constexpr int JH = (MAX_G + NG - 1) / NG;  // heads per thread in that pass
+  // QD need not divide THREADS (hd 160: 6 groups of 40 threads); the
+  // threads past the last whole group take no part in P·V
 
   __shared__ __align__(16) uint8_t sk[TP * PITCH];
   __shared__ __align__(16) uint8_t sv[TP * PITCH];
-  __shared__ __align__(16) float sq[MAX_G * HD];
+  extern __shared__ __align__(16) float sq[];  // G * HD, sized at launch
   __shared__ float sp[MAX_G * TP];
   __shared__ float sm[MAX_G], sl[MAX_G], salpha[MAX_G];
 
@@ -147,6 +149,7 @@ decode_kernel(Args a) {
   const uint8_t* vm = a.valid != nullptr ? a.valid + b * a.valid_sb : nullptr;
   const float sqrt_hd = sqrtf((float)HD);
   const int dq = tid % QD, hg = tid / QD;
+  const bool pv = hg < NG;
 
   float acc[JH][4];
 #pragma unroll
@@ -238,7 +241,7 @@ decode_kernel(Args a) {
 #pragma unroll
     for (int j = 0; j < JH; ++j) {
       const int g = hg + j * NG;
-      if (g < G) {
+      if (pv && g < G) {
         const float alpha = salpha[g];
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[j][e] *= alpha;
@@ -259,7 +262,7 @@ decode_kernel(Args a) {
 #pragma unroll
   for (int j = 0; j < JH; ++j) {
     const int g = hg + j * NG;
-    if (g < G) {
+    if (pv && g < G) {
       float* dst = a.acc + (out + g) * HD + dq * 4;
 #pragma unroll
       for (int e = 0; e < 4; ++e) dst[e] = acc[j][e];
@@ -309,8 +312,17 @@ unsigned grid_for(int64_t work) {
 template <typename KV, int HD>
 cudaError_t launch_g(const Args& a, cudaStream_t s) {
   if (a.G < 1 || a.G > MAX_G) return cudaErrorInvalidValue;
+  // static shared memory of decode_kernel<KV, HD>, beside the dynamic sq
+  constexpr int PITCH = HD * (int)sizeof(KV) + 16;
+  constexpr int STATIC = 2 * TP * PITCH + (MAX_G * TP + 3 * MAX_G) * 4;
+  const int dyn = a.G * HD * (int)sizeof(float);
+  if (STATIC + dyn > 48 * 1024) {  // fp32 at hd 160 with G > 7: opt in
+    const cudaError_t err = cudaFuncSetAttribute(
+        decode_kernel<KV, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+    if (err != cudaSuccess) return err;
+  }
   const dim3 grid((unsigned)(a.B * a.K), (unsigned)a.splits);
-  decode_kernel<KV, HD><<<grid, THREADS, 0, s>>>(a);
+  decode_kernel<KV, HD><<<grid, THREADS, dyn, s>>>(a);
   return cudaSuccess;
 }
 
@@ -321,6 +333,7 @@ cudaError_t launch_hd(const Args& a, int hd, cudaStream_t s) {
     case 32: return launch_g<KV, 32>(a, s);
     case 64: return launch_g<KV, 64>(a, s);
     case 128: return launch_g<KV, 128>(a, s);
+    case 160: return launch_g<KV, 160>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -382,7 +395,7 @@ __global__ void append_kernel(const Ti* __restrict__ k_src, const Ti* __restrict
 // bytes with row stride valid_sb.  Scratch acc (B, K, splits, G, hd), m
 // and l (B, K, splits, G); outputs acc_out (B, H, hd), m_out and l_out
 // (B, H).  With splits == 1 the scratch may be the output itself, and no
-// merge runs.  hd is 16, 32, 64 or 128 and G = H / K at most 16.
+// merge runs.  hd is 16, 32, 64, 128 or 160 and G = H / K at most 16.
 // Returns cudaGetLastError().
 extern "C" int repro_decode_attention_partial(
     const float* q, const void* k, const void* v, int kv_dtype, int64_t sb, int64_t st,

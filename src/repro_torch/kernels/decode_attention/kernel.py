@@ -8,7 +8,7 @@ import torch
 from repro_torch.kernels import common
 
 #: head dims the kernel is built for
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 160)
 #: query heads per KV head the kernel is built for
 MAX_GROUP = 16
 #: SMs of an H100, for the split of T across blocks

@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` -> (config, model module).
 
-All ten configs are here; of the model families only ``dense`` and
-``vlm`` (the transformer backbone) are ported.  Asking for another family
-raises."""
+All ten configs are here; of the model families ``dense`` and ``vlm``
+(the transformer backbone) and ``ssm`` (rwkv6) are ported.  Asking for
+another family raises."""
 from __future__ import annotations
 
 import dataclasses
@@ -27,6 +27,7 @@ _CONFIG_MODULES = {
 _FAMILY_MODULES = {
     "dense": "repro_torch.models.transformer",
     "vlm": "repro_torch.models.transformer",  # backbone
+    "ssm": "repro_torch.models.rwkv",
 }
 
 ARCH_IDS = tuple(_CONFIG_MODULES)

@@ -188,6 +188,20 @@ def test_kernel_checks_shapes_before_launch():
     assert t_kernel.splits_for(2, 2, 64) == 1
 
 
+def test_kernel_shape_check_takes_head_dim_160():
+    """stablelm-12b's head dim (160, 32 query heads over 8 KV heads) is
+    built; a head dim that is not, such as 96, is still refused."""
+    assert 160 in t_kernel.HEAD_DIMS
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn(2, 32, 160).to(dtype)
+        k = torch.randn(2, 8, 8, 160).to(dtype)
+        t_kernel._check_kv(q, k, k)
+    q = torch.randn(2, 32, 96)
+    k = torch.randn(2, 8, 8, 96)
+    with pytest.raises(ValueError, match="head dim"):
+        t_kernel._check_kv(q, k, k)
+
+
 # -- the hand-written kernels, on the card ---------------------------------------
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -222,6 +236,40 @@ def test_decode_attention_kernel_matches_plain(cuda, dtype, memory):
                                    atol=tol)
         # the fully masked row: no load, (acc, l) = 0, merged weight 0
         assert bool((m[0] == t_ref.NEG_INF).all()) and not l[0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("memory", ["hbm", "pinned"])
+def test_decode_attention_kernel_head_dim_160(cuda, dtype, memory):
+    """stablelm-12b's heads (hd 160, G = 4): both forms against the plain
+    versions, ragged lengths and a fully masked row."""
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    g = torch.Generator().manual_seed(1)
+    B, H, K, hd, T = 3, 32, 8, 160, 200
+    q = torch.randn((B, H, hd), generator=g).to(dtype)
+    k = torch.randn((B, T, K, hd), generator=g).to(dtype)
+    v = torch.randn((B, T, K, hd), generator=g).to(dtype)
+    lengths = torch.tensor([1, 77, T])
+    valid = torch.rand((B, T), generator=g) < 0.6
+    valid[0] = False
+    kk = k.to(cuda) if memory == "hbm" else k.pin_memory()
+    vv = v.to(cuda) if memory == "hbm" else v.pin_memory()
+    before = t_da.LAUNCHES.count
+    got = t_da.decode_attention(q.to(cuda), kk, vv, lengths.to(cuda))
+    acc, m, l = t_da.attend_partial(q.to(cuda), kk, vv, valid.to(cuda))
+    want = t_ref.decode_attention(q, k, v, lengths)
+    ra, rm, rl = t_ref.attend_partial(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert t_da.LAUNCHES.count == before + 2
+    torch.testing.assert_close(got.cpu(), want, atol=tol, rtol=tol * 10)
+    rows = valid.any(1)
+    torch.testing.assert_close(acc.cpu()[rows], ra[rows], atol=tol,
+                               rtol=tol * 10)
+    torch.testing.assert_close(m.cpu()[rows], rm[rows], atol=tol, rtol=tol)
+    torch.testing.assert_close(l.cpu()[rows], rl[rows], atol=tol,
+                               rtol=tol * 10)
+    assert bool((m[0] == t_ref.NEG_INF).all()) and not l[0].any()
 
 
 @pytest.mark.cuda

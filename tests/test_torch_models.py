@@ -47,17 +47,44 @@ def test_config_equal_field_by_field(arch):
 
 
 def test_registry_ports_dense_and_vlm_only():
+    """dense and vlm go to the transformer, ssm (rwkv6) to its own module;
+    the other families are not ported yet."""
     assert t_registry.ARCH_IDS == r_registry.ARCH_IDS
+    ported = {"dense": "repro_torch.models.transformer",
+              "vlm": "repro_torch.models.transformer",
+              "ssm": "repro_torch.models.rwkv"}
     for arch in ARCHS:
         cfg = t_registry.get_config(arch)
-        if cfg.family in ("dense", "vlm"):
-            assert t_registry.get(arch).module.__name__ == (
-                "repro_torch.models.transformer")
+        if cfg.family in ported:
+            assert t_registry.get(arch).module.__name__ == ported[cfg.family]
         else:
             with pytest.raises(NotImplementedError, match="not ported"):
                 t_registry.get(arch)
     with pytest.raises(KeyError):
         t_registry.get("gpt-5")
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    """No module of ``repro_torch`` imports ``jax`` or anything of ``repro``
+    (the port runs where neither is installed)."""
+    import ast
+    from pathlib import Path
+
+    import repro_torch
+    root = Path(repro_torch.__file__).parent
+    files = sorted(root.rglob("*.py"))
+    assert len(files) > 40
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "repro"), (path, name)
 
 
 # -- primitives ----------------------------------------------------------------------

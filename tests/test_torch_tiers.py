@@ -217,6 +217,7 @@ def test_import_loads_neither_jax_nor_the_reference():
         "import repro_torch.kernels.embedding_reduce.ops\n"
         "import repro_torch.kernels.stream_copy.ops\n"
         "import repro_torch.kernels.decode_attention.ops\n"
+        "import repro_torch.kernels.wkv6.ops, repro_torch.models.rwkv\n"
         "import repro_torch.serving.engine, repro_torch.launch.serve\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
