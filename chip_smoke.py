@@ -9,7 +9,8 @@ It needs a CUDA card and the checkout's ``src/`` beside it, and fails
 wrong result or a missing kernel launch:
 
 1. device: card name and power limit; build the four CUDA kernels from
-   ``src/repro_torch/csrc`` (one ``nvcc`` each, in parallel).
+   ``src/repro_torch/csrc`` (one ``nvcc`` each, in parallel); fail if
+   ``-Xptxas -v`` reports a spill in any of them.
 2. ``embedding_reduce`` against its plain version: fp32 and bf16 tables in
    HBM and in pinned host memory, duplicate indices, zero weights.
 3. ``stream_copy`` against its plain version: the ragged row sweep on the
@@ -24,10 +25,13 @@ wrong result or a missing kernel launch:
    measures bags/s at fixed slow fractions (not part of the main path).
 5. ``decode_attention`` against its plain version, both forms, fp32 and
    bf16, K/V in HBM and in pinned host memory, ragged lengths (1 and T),
-   a fully masked partition row, stablelm-12b's head dim 160; the append
-   scatter likewise; then the
-   partial form's time at the serving shape against its plain version,
-   ``scaled_dot_product_attention`` (timed only) and its byte bound.
+   a fully masked partition row, stablelm-12b's head dim 160,
+   recurrentgemma-9b's 16 x 1 heads of 256 (with its 2048-position
+   window as the mask); an fp32 q that bf16 cannot hold over bf16 K/V
+   (held to 1e-4); valid tiles only at the end of T; the append scatter
+   likewise; then the partial form's time at the serving shape against
+   its plain version, ``scaled_dot_product_attention`` (timed only) and
+   its byte bound, the pinned pool's rate, and a sweep of split counts.
 6. the serving slice: starcoder2-3b at full width and depth, bf16, random
    weights from a seeded generator, a ``ServingEngine`` over 16 slots of
    4096 positions (HBM pool + pinned pool sized by the Caption headroom),
@@ -64,6 +68,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -123,11 +128,19 @@ def phase_device() -> dict:
     t0 = time.perf_counter()
     logs = common.build()
     build_s = time.perf_counter() - t0
+    spills = []
     for kname, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas[{kname}] {line.strip()}")
-    log(f"phase1/build,seconds={build_s:.2f},built={sorted(logs)}")
+            found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                              line)
+            if found and found.groups() != ("0", "0"):
+                spills.append(f"{kname}: {line.strip()}")
+    log(f"phase1/build,seconds={build_s:.2f},built={sorted(logs)},"
+        f"spilling_kernels={len(spills)}")
+    if spills:
+        raise RuntimeError("kernels spill registers: " + "; ".join(spills))
     return {"name": name, "card": card, "build_s": build_s}
 
 
@@ -151,6 +164,19 @@ def device_busy_share(fn) -> str:
     if busy_us <= 0:
         return "not measured"
     return f"{busy_us / wall_us:.3f}"
+
+
+def kernels_per_call(fn) -> int:
+    """Device kernels one ``fn()`` launches, from a profiled call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
 
 
 def _pinned(t):
@@ -562,6 +588,23 @@ def check_partial(q, k, v, valid, tol: float) -> float:
     return err
 
 
+def check_both(q, k, v, lengths, valid, mem: str, tol: float) -> float:
+    """Both forms through their wrappers, K/V in ``mem`` ("hbm" or
+    "pinned"), against the plain versions on the card; max abs error."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops, ref
+    dev = torch.device(DEVICE)
+    kk = k.to(dev) if mem == "hbm" else _pinned(k)
+    vv = v.to(dev) if mem == "hbm" else _pinned(v)
+    qd, ld, vd = q.to(dev), lengths.to(dev), valid.to(dev)
+    got = ops.decode_attention(qd, kk, vv, ld)
+    want = ref.decode_attention(qd, k.to(dev), v.to(dev), ld)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol * 10)
+    return max(float((got - want).abs().max()),
+               check_partial(qd, kk, vv, vd, tol))
+
+
 def serve_caption(cfg, topo):
     """The serving slice's Caption controller (it also sizes the pinned
     pool: ``headroom_pages`` per slot)."""
@@ -585,7 +628,9 @@ def phase_decode_attention(stats: dict) -> None:
     worst, n = 0.0, 0
     shapes = DA_SWEEP + ((SERVE_B, SERVE_H, SERVE_K, SERVE_HD, 1024),
                          (2, 32, 8, 160, 256),  # stablelm-12b's heads
-                         (2, 16, 1, 160, 96))  # hd 160 at 16 heads a group
+                         (2, 16, 1, 160, 96),  # hd 160 at 16 heads a group
+                         (2, 16, 1, 256, 128),  # recurrentgemma-9b's heads
+                         (4, 16, 1, 256, 1000))
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
         for mem in ("hbm", "pinned"):
             for B, H, K, hd, T in shapes:
@@ -596,19 +641,64 @@ def phase_decode_attention(stats: dict) -> None:
                 lengths[0], lengths[-1] = 1, T
                 valid = torch.rand((B, T), generator=g) < 0.6
                 valid[0] = False  # a fully masked partition row
-                kk = k.to(dev) if mem == "hbm" else _pinned(k)
-                vv = v.to(dev) if mem == "hbm" else _pinned(v)
-                qd, ld, vd = q.to(dev), lengths.to(dev), valid.to(dev)
-                got = ops.decode_attention(qd, kk, vv, ld)
-                want = ref.decode_attention(qd, k.to(dev), v.to(dev), ld)
-                torch.cuda.synchronize()
-                torch.testing.assert_close(got, want, atol=tol, rtol=tol * 10)
-                err = max(float((got - want).abs().max()),
-                          check_partial(qd, kk, vv, vd, tol))
+                err = check_both(q, k, v, lengths, valid, mem, tol)
                 worst = max(worst, err)
                 n += 1
                 log(f"phase5/decode_attention/{str(dtype)[6:]}/{mem}/"
                     f"B{B}xH{H}xK{K}xhd{hd}xT{T},max_abs_err={err:.3g}")
+            # recurrentgemma-9b's local attention: 16 x 1 heads of 256, a
+            # 2048-position window before each row's length as the mask
+            B, H, K, hd, T, win = 4, 16, 1, 256, 4096, 2048
+            q = torch.randn((B, H, hd), generator=g).to(dtype)
+            k = torch.randn((B, T, K, hd), generator=g).to(dtype)
+            v = torch.randn((B, T, K, hd), generator=g).to(dtype)
+            lengths = torch.tensor([1, 1000, 2748, T])
+            t = torch.arange(T)[None]
+            valid = (t < lengths[:, None]) & (t >= lengths[:, None] - win)
+            err = check_both(q, k, v, lengths, valid, mem, tol)
+            worst = max(worst, err)
+            n += 1
+            log(f"phase5/decode_attention/{str(dtype)[6:]}/{mem}/window{win}"
+                f"/B{B}xH{H}xK{K}xhd{hd}xT{T},max_abs_err={err:.3g}")
+    # bf16 K/V with an fp32 q that bf16 cannot hold: the kernel splits q
+    # (and P) into bf16 high and low halves.  Held to 1e-4 on the
+    # normalised rows, where q rounded to bf16 lands far outside.
+    for B, H, K, hd, T in ((SERVE_B, SERVE_H, SERVE_K, SERVE_HD, 1024),
+                           (2, 16, 1, 256, 512)):
+        q = torch.randn((B, H, hd), generator=g).to(dev)
+        assert not torch.equal(q, q.bfloat16().float())  # off the bf16 grid
+        k = torch.randn((B, T, K, hd), device=dev).to(torch.bfloat16)
+        v = torch.randn((B, T, K, hd), device=dev).to(torch.bfloat16)
+        lengths = torch.randint(1, T + 1, (B,), device=dev)
+        got = ops.decode_attention(q, k, v, lengths)
+        want = ref.decode_attention(q, k, v, lengths)
+        rounded = ref.decode_attention(q.bfloat16(), k, v, lengths)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        err_bf16_q = float((rounded - want).abs().max())
+        assert err <= 1e-4 < err_bf16_q, (err, err_bf16_q)
+        valid = torch.rand((B, T), device=dev) < 0.6
+        valid[0] = False
+        err_partial = check_partial(q, k, v, valid, 2e-2)
+        worst = max(worst, err, err_partial)
+        n += 1
+        log(f"phase5/decode_attention/fp32_q_bf16_kv/B{B}xH{H}xK{K}xhd{hd}"
+            f"xT{T},normalised_err={err:.3g},held_to=1e-4,bf16_rounded_q_err="
+            f"{err_bf16_q:.3g},partial_max_abs_err={err_partial:.3g}")
+    # valid tiles only at the end of T: every split shares those few tiles
+    B, H, K, hd, T = SERVE_B, SERVE_H, SERVE_K, SERVE_HD, SERVE_T
+    q = torch.randn((B, H, hd), device=dev).to(torch.bfloat16)
+    k = torch.randn((B, T, K, hd), device=dev).to(torch.bfloat16)
+    v = torch.randn((B, T, K, hd), device=dev).to(torch.bfloat16)
+    valid = torch.zeros((B, T), dtype=torch.bool, device=dev)
+    valid[:, T - 200:] = torch.rand((B, 200), device=dev) < 0.7
+    valid[1] = False
+    err = check_partial(q, k, v, valid, 2e-2)
+    worst = max(worst, err)
+    n += 1
+    tiles = int(valid.view(B, -1, kernel.TILE).any(-1).sum(1).max())
+    log(f"phase5/decode_attention/bf16/hbm/tail_tiles/B{B}xT{T},valid_tiles="
+        f"{tiles},splits={kernel.splits_for(B, K, T)},max_abs_err={err:.3g}")
     # the append scatter, both memories, with the cast and dropped rows
     for mem in ("hbm", "pinned"):
         for dtype in (torch.float32, torch.bfloat16):
@@ -666,20 +756,31 @@ def phase_decode_attention(stats: dict) -> None:
               + B * H * hd * 4 + 2 * B * H * 4)
     flops = 4 * B * SERVE_VALID * H * hd
     bound = max(nbytes / HBM_BW, flops / FP32_FLOPS) * 1e3
-    log(f"phase5/decode_attention/serving_shape,splits={splits},"
-        f"ms={k_ms:.4f},plain_ms={p_ms:.4f},library_ms={l_ms:.4f},"
-        f"bound_ms={bound:.4f},bytes={nbytes},"
-        f"GBps={kv_bytes / (k_ms * 1e-3) / 1e9:.2f},"
-        f"bound_share={bound / k_ms:.3f},max_abs_err={err:.3g}")
     # the HBM partition's rows read in place from pinned host memory
     kp, vp = _pinned(k.cpu()), _pinned(v.cpu())
     pin_ms = time_ms(lambda: ops.attend_partial(q, kp, vp, valid), iters=5,
                      queue_ahead=True)
+    pin_gbps = kv_bytes / (pin_ms * 1e-3) / 1e9
+    per_call = kernels_per_call(lambda: ops.attend_partial(q, k, v, valid))
+    log(f"phase5/decode_attention/serving_shape,splits={splits},"
+        f"launches_per_call={per_call},"
+        f"ms={k_ms:.4f},plain_ms={p_ms:.4f},library_ms={l_ms:.4f},"
+        f"bound_ms={bound:.4f},bytes={nbytes},"
+        f"GBps={kv_bytes / (k_ms * 1e-3) / 1e9:.2f},"
+        f"bound_share={bound / k_ms:.3f},pinned_GBps={pin_gbps:.2f},"
+        f"max_abs_err={err:.3g}")
     log(f"phase5/decode_attention/pinned_pool,ms={pin_ms:.4f},"
-        f"GBps={kv_bytes / (pin_ms * 1e-3) / 1e9:.2f}")
+        f"GBps={pin_gbps:.2f}")
+    # blocks per (sequence, KV head) at the serving shape: the split rule's
+    # choice against its neighbours, in one call on one card
+    sweep = {s_: time_ms(lambda s_=s_: kernel.attend_partial(
+        q, k, v, valid, dev, splits=s_), queue_ahead=True)
+        for s_ in range(1, kernel.MAX_SPLITS + 1)}
+    log("phase5/decode_attention/split_sweep," + ",".join(
+        f"s{s_}_ms={t:.4f}" for s_, t in sweep.items()))
     stats["da"] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
                    "bound_ms": bound, "err": worst,
-                   "pinned_GBps": kv_bytes / (pin_ms * 1e-3) / 1e9}
+                   "pinned_GBps": pin_gbps}
     ops.LAUNCHES.reset()
     ops.APPEND_LAUNCHES.reset()
 

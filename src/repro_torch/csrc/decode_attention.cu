@@ -4,7 +4,7 @@
 // Replaces the Pallas TPU kernel repro/kernels/decode_attention/kernel.py
 // (`decode_attention`, body `_kernel`), which walks KV blocks of `block_t`
 // in order on one core, keeps the online-softmax state (m, l, acc) in VMEM
-// and skips blocks past `lengths[b]`.  Two entry points share one body:
+// and skips blocks past `lengths[b]`.  Two entry points share each body:
 //
 // * partial form (`repro_decode_attention_partial`): a validity mask
 //   (B, T) in, the unnormalised (acc, m, l) out — the per-partition piece
@@ -15,115 +15,618 @@
 //
 // What bounds it: bytes.  Each K/V row is read once and serves the G = H/K
 // query heads of its KV head: 2·G flops per element, 12 per byte for bf16
-// at G = 12, below the 20 per byte (67 TFLOP/s over 3.35 TB/s) at which
-// fp32 arithmetic outside the tensor cores would be the limit.  From HBM
-// the bound is 3.35 TB/s; from pinned host memory, read in place through
-// unified virtual addressing, it is the PCIe link.
+// at G = 12, far below the tensor cores' ~295 per byte.  From HBM the
+// bound is 3.35 TB/s; from pinned host memory, read in place through
+// unified virtual addressing, it is the PCIe link.  The design keeps the
+// shared-memory pipe and the barriers out of the way of that stream.
 //
-// Design:
-// * One block of 256 threads per (sequence, KV head, split of T).  The
-//   positions of one sequence are cut into `splits` contiguous pieces so
-//   that B·K·splits blocks fill the 132 SMs when B·K alone would not; a
-//   second small kernel merges the pieces with the same (acc, m, l)
-//   algebra (and normalises, in the normalised form).
-// * The block walks its positions in tiles of 32.  Each tile's K and V
-//   rows are loaded in 16-byte chunks by consecutive threads (coalesced)
-//   into registers while the previous tile computes, then staged in
-//   shared memory (rows padded by 16 bytes: conflict-free row reads).
-//   Scores take one (head, position) pair per thread; the online softmax
-//   takes one warp per head and one lane per position, so each exp is
-//   computed once; P·V gives each thread four columns of up to two heads.
-//   The G heads of a KV head share every K/V byte.
-// * A masked position issues no K/V load (its shared row is zeroed) and a
-//   tile with no valid position is skipped whole (partial form); in the
-//   normalised form positions at or past lengths[b] are never visited.
-//   Only a pool's own valid rows cross PCIe.  A sequence with no valid
-//   position returns m = -1e30, l = 0, acc = 0 (the plain version returns
-//   l = T and the sum of V there; both merge with weight
-//   exp(-1e30 - m_all) = 0).
-// * Scores are the fp32 dot product (fused multiply-adds, in another
-//   order than the reference) divided by sqrt(hd), masked with the finite
-//   NEG_INF = -1e30; every reduction runs in a fixed order, so results do
-//   not change from run to run.
+// bf16 K/V (every serving pool) — `decode_mma_kernel`:
+// * One block of four warps per (sequence, KV head, split).  The split
+//   is taken over the tiles of 64 positions that hold a valid position:
+//   the block reads its row of the mask (T bytes, from L2), counts those
+//   tiles and takes its contiguous share of them, in order (normalised
+//   form: of the tiles below lengths[b]).  No block idles on a masked
+//   stretch of T, and a tile with no valid position is never read.
+// * A ring of three 64-position K/V stages in shared memory, filled by
+//   16-byte `cp.async` (coalesced rows, each row padded by 16 bytes so
+//   the `ldmatrix` row addresses of a phase fall in distinct banks); one
+//   barrier per stage.  A masked position (or one past T) issues its
+//   copy with source size 0: the row is zero-filled and nothing is read,
+//   so only a pool's own valid rows cross PCIe.  HBM rows bypass L1
+//   (.cg); pinned host rows go through it (.ca), which PCIe serves far
+//   faster.
+// * Both products run on the tensor cores as `mma.sync` m16n8k16 bf16
+//   with fp32 accumulation.  The G <= 16 query heads of the KV head are
+//   the 16 rows of the A tile (rows past G are zero).  `wgmma` needs 64
+//   rows and the problem has 16, so the warp-level `mma.sync` is the
+//   right instruction here; the tensor cores idle at this byte-bound
+//   shape either way.  Q·Kᵀ reads K with `ldmatrix`, P·V reads V with
+//   `ldmatrix.trans`; the score accumulator becomes P in registers (as
+//   in FlashAttention-2) and the online softmax runs on the fragments,
+//   with quad shuffles for the row maxima, in base 2 (the 1/sqrt(hd)
+//   scale folded into log2(e)).
+// * fp32 accuracy: an fp32 q is split into a bf16 high half and a bf16
+//   low half (q - hi), and Q·Kᵀ issues one MMA for each; P (fp32) is
+//   split the same way for P·V.  hi + lo carries 16 bits of mantissa.
+//   A bf16 q is taken as it is (no low half, no cast launch).
+// * Each warp owns 16 positions of every stage (hd <= 160) and the
+//   whole output row of its heads: at most 80 fp32 accumulators a
+//   thread.  At hd 256 that would be 128, so two warps share each 32
+//   positions: both compute the (cheap) scores, each keeps half of the
+//   output columns.  The warps' (m, l, acc) are merged in a fixed order
+//   at the end through the ring's shared memory.
+// * The splits of one (sequence, KV head) form a thread-block cluster
+//   (at most 8, the portable size) and merge their (acc, m, l) through
+//   distributed shared memory, in rank order, straight into the outputs:
+//   one launch per call, no scratch.
+// * The prologue overlaps its global round trips (Q, the mask scan) and
+//   puts the ring's first stages in flight before converting Q.
+//
+// fp32 K/V — `decode_f32_kernel`, the CUDA-core body: bf16 or tf32
+// operands could not hold its 1e-5 tolerance, and no serving pool is
+// fp32.  One block of 256 threads per (sequence, KV head, split of T);
+// tiles of 32 positions loaded into registers while the previous tile
+// computes, staged in padded shared memory, one (head, position) score
+// per thread, one warp per head for the softmax, four columns per thread
+// for P·V.
+//
+// Both: a sequence with no valid position returns m = -1e30, l = 0,
+// acc = 0 (the plain version returns l = T and the sum of V there; both
+// merge with weight exp(-1e30 - m_all) = 0).  Scores are the dot product
+// divided by sqrt(hd), masked with the finite NEG_INF = -1e30; every
+// reduction runs in a fixed order, so results do not change from run to
+// run.  The fp32 body writes its splits to scratch and a second small
+// kernel merges them with the same algebra (and normalises, in the
+// normalised form).
 //
 // The same source holds the append scatter of the decode step: one new
 // K and V row per sequence, written at a per-sequence row of a pool layer
 // (HBM or pinned) with the cast to the pool's dtype fused in; rows out of
 // range are dropped.  It replaces the `.at[...].set(mode="drop")` scatter
 // of repro/serving/kv_cache.py `append_layer` without a host sync.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int THREADS = 256;
-constexpr int NWARPS = THREADS / 32;
-constexpr int TP = 32;      // positions per tile: one per lane in the softmax
-constexpr int MAX_G = 16;   // query heads per KV head
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int MAX_G = 16;        // query heads per KV head
+constexpr int SMEM_MAX = 232448; // bytes of shared memory a block may use
 
 struct Args {
-  const float* q;            // (B, H, hd) fp32, contiguous
+  const void* q;             // (B, H, hd) contiguous, fp32 or bf16
+  int q_dtype;               // 0 fp32, 1 bf16
   const void* k;             // (B, T, K, hd), last dim contiguous
   const void* v;             // same shape and strides as k
+  int kv_host;               // k and v lie in pinned host memory
   int64_t sb, st, sk;        // element strides of k and v
   const uint8_t* valid;      // (B, T) mask (partial form) or null
   int64_t valid_sb;
   const int32_t* lengths;    // (B,) (normalised form) or null
   int B, T, K, G, splits;
-  float* acc;                // (B, K, splits, G, hd)
+  float* acc;                // scratch (B, K, splits, G, hd) of the fp32 body
   float* m;                  // (B, K, splits, G)
   float* l;                  // (B, K, splits, G)
+  float* acc_out;            // partial form: (B, H, hd), (B, H), (B, H)
+  float* m_out;
+  float* l_out;
+  float* out;                // normalised form: (B, H, hd)
 };
 
-// 16 bytes of K or V as floats: 4 fp32 or 8 bf16.
-__device__ __forceinline__ void to_float(const uint4& raw, float* out, float) {
-  out[0] = __uint_as_float(raw.x); out[1] = __uint_as_float(raw.y);
-  out[2] = __uint_as_float(raw.z); out[3] = __uint_as_float(raw.w);
+__device__ __forceinline__ float load_q(const Args& a, int64_t i) {
+  return a.q_dtype == 0 ? static_cast<const float*>(a.q)[i]
+                        : __bfloat162float(static_cast<const __nv_bfloat16*>(a.q)[i]);
 }
 
-__device__ __forceinline__ void to_float(const uint4& raw, float* out, __nv_bfloat16) {
-  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+// ---------------------------------------------------------------------------
+// bf16 K/V: tensor cores, cp.async ring, splits over valid tiles
+
+constexpr int TP = 64;          // positions per tile and per ring stage
+constexpr int NS = 3;           // ring stages
+constexpr int MW = 4;           // warps per block
+constexpr int MTHREADS = MW * 32;
+constexpr int MAX_SPLITS = 8;   // blocks per (sequence, KV head): one portable cluster
+
+template <int HD>
+struct Tile {
+  static constexpr int WC = HD > 160 ? 2 : 1;  // warps that share positions, each a column slice
+  static constexpr int WT = MW / WC;           // position groups of a stage
+  static constexpr int PW = TP / WT;           // positions per warp per stage
+  static constexpr int NT = PW / 8;            // n-tiles of the scores
+  static constexpr int KQ = HD / 16;           // k-steps of Q·Kᵀ
+  static constexpr int KP = PW / 16;           // k-steps of P·V
+  static constexpr int CW = HD / WC;           // output columns per warp
+  static constexpr int NO = CW / 8;            // n-tiles of the output
+  static constexpr int PITCH = HD * 2 + 16;    // bytes per shared row (padded)
+  static constexpr int CR = HD / 8;            // 16-byte chunks per row
+  static constexpr int STAGE = 2 * TP * PITCH; // K rows then V rows
+  static constexpr int QBYTES = 16 * PITCH;    // one bf16 half of Q
+  static constexpr int MP = HD + 4;            // floats per row of the merge area
+  static_assert(NT % 2 == 0 && NO % 2 == 0 && KP >= 1, "tile shape");
+  static_assert((WT * 16 * (MP + 2) + (2 * MAX_SPLITS + 4) * 16 + 16 * HD + MAX_SPLITS) * 4 <=
+                    NS * STAGE,
+                "merge area fits the ring");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; with ok false the row is zero-filled and
+// nothing is read (source size 0).  From HBM the copy bypasses L1 (.cg);
+// from pinned host memory it goes through L1 (.ca), which reads PCIe at
+// several times the rate of .cg (tools/decode_attention_probe.py).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok, bool host) {
+  if (host)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
+  else
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// c (16x8 fp32) += a (16x16 bf16, row) · b (16x8 bf16, col)
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bits_of(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// (x, y) as packed bf16 high halves and low halves (x - hi, y - hi).
+__device__ __forceinline__ void split2(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bits_of(h);
+  lo = bits_of(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Positions t0 .. t0 + 15 as 16 bits: t < t_end, and the mask's byte where
+// there is a mask (one 16-byte load when the row is aligned and whole).
+__device__ __forceinline__ uint32_t seg_bits(const uint8_t* vm, int t0, int t_end,
+                                             bool aligned) {
+  uint32_t bits = 0;
+  if (vm != nullptr && aligned && t0 + 16 <= t_end) {
+    const uint4 x = *reinterpret_cast<const uint4*>(vm + t0);
+    const uint32_t w[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
+    for (int i = 0; i < 4; ++i)  // nonzero bytes -> 0x01, gathered into 4 bits
+      bits |= (((__vcmpne4(w[i], 0u) & 0x01010101u) * 0x01020408u) >> 24) << (4 * i);
+    return bits;
+  }
+  for (int i = 0; i < 16; ++i) {
+    const int t = t0 + i;
+    if (t < t_end && (vm == nullptr || vm[t] != 0)) bits |= 1u << i;
+  }
+  return bits;
+}
+
+// Shared memory, not registers, caps the blocks per SM.  Without a
+// minimum ptxas trades a few spilled bytes for a register-count occupancy
+// step the kernel can never use (hd 160 and 64); with one, at hd 256 it
+// schedules for ILP and spills more.  So hd <= 160 asks for one block per
+// SM and hd 256 leaves the minimum unset (0).
+template <int HD, bool LO>
+__global__ void __launch_bounds__(MTHREADS, HD > 160 ? 0 : 1)
+decode_mma_kernel(Args a) {
+  using S = Tile<HD>;
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint8_t* ring = smem;
+  uint8_t* qhi = ring + NS * S::STAGE;
+  uint8_t* qlo = qhi + S::QBYTES;  // only with LO
+  const int tiles = (a.T + TP - 1) / TP;
+  const int words = (tiles + 31) / 32;
+  const int share = (tiles + a.splits - 1) / a.splits;  // most tiles a block takes
+  uint64_t* tmask = reinterpret_cast<uint64_t*>(qhi + (LO ? 2 : 1) * S::QBYTES);
+  int* list = reinterpret_cast<int*>(tmask + share);
+  uint32_t* tbits = reinterpret_cast<uint32_t*>(list + share);
+
+  const int bk = blockIdx.x;
+  const int b = bk / a.K, kh = bk % a.K;
+  const int split = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = a.G;
+
+  // The prologue keeps its global round trips few and overlapped: Q's
+  // loads and the mask scan's go out together, and the ring's first
+  // stages are in flight before Q is converted.
+
+  // Q's G rows (zero-padded to 16) as raw 16-byte chunks; LO is set
+  // exactly when q is fp32
+  constexpr int EPC = LO ? 4 : 8;  // q elements per 16 bytes
+  constexpr int QCH = 16 * HD / EPC;
+  constexpr int QPT = (QCH + MTHREADS - 1) / MTHREADS;
+  uint4 qraw[QPT];
+  {
+    const uint8_t* qb = static_cast<const uint8_t*>(a.q) +
+                        ((int64_t)b * a.K + kh) * G * HD * (LO ? 4 : 2);
+#pragma unroll
+    for (int j = 0; j < QPT; ++j) {
+      const int c = tid + j * MTHREADS;
+      qraw[j] = make_uint4(0u, 0u, 0u, 0u);
+      if (c < QCH && c * EPC / HD < G) qraw[j] = *reinterpret_cast<const uint4*>(qb + c * 16);
+    }
+  }
+
+  // this block's share of the tiles that hold a valid position
+  const uint8_t* vm = a.valid != nullptr ? a.valid + b * a.valid_sb : nullptr;
+  const bool aligned = (reinterpret_cast<uintptr_t>(vm) & 15) == 0;
+  int t_end = a.T;
+  if (a.lengths != nullptr) t_end = min(t_end, max(a.lengths[b], 0));
+  int n, first = 0;
+  if (vm == nullptr) {
+    const int nt = (t_end + TP - 1) / TP;
+    first = (int)((int64_t)split * nt / a.splits);
+    n = (int)((int64_t)(split + 1) * nt / a.splits) - first;
+  } else {
+    for (int w = tid; w < words; w += MTHREADS) tbits[w] = 0;
+    __syncthreads();
+    constexpr int U = 4;  // 16-position segments a thread scans per round, loads first
+    for (int sg0 = tid; sg0 * 16 < a.T; sg0 += U * MTHREADS) {
+      uint32_t any[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int sg = sg0 + u * MTHREADS;
+        any[u] = sg * 16 < a.T ? seg_bits(vm, sg * 16, a.T, aligned) : 0u;
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int sg = sg0 + u * MTHREADS;
+        if (any[u] != 0) atomicOr(&tbits[sg / 128], 1u << ((sg / 4) % 32));
+      }
+    }
+    __syncthreads();
+    int nv = 0;
+    for (int w = 0; w < words; ++w) nv += __popc(tbits[w]);
+    const int s0 = (int)((int64_t)split * nv / a.splits);
+    const int s1 = (int)((int64_t)(split + 1) * nv / a.splits);
+    n = s1 - s0;
+    for (int t = tid; t < tiles; t += MTHREADS) {  // one tile a thread: its rank
+      const uint32_t w = tbits[t / 32], below = w & ((1u << (t % 32)) - 1u);
+      if (((w >> (t % 32)) & 1u) == 0) continue;
+      int r = __popc(below);
+      for (int w2 = 0; w2 < t / 32; ++w2) r += __popc(tbits[w2]);
+      if (r >= s0 && r < s1) list[r - s0] = t;
+    }
+  }
+  __syncthreads();  // the list is in place
+  auto tile_of = [&](int i) { return vm != nullptr ? list[i] : first + i; };
+
+  // the 64-bit validity word of each tile in the share: four threads a
+  // tile, 16 positions each, gathered by shuffles
+  for (int j0 = 0; j0 < n; j0 += MTHREADS / 4) {
+    const int j = j0 + tid / 4;
+    const uint32_t bits =
+        j < n ? seg_bits(vm, tile_of(j) * TP + (tid % 4) * 16, t_end, aligned) : 0u;
+    const uint32_t b1 = __shfl_down_sync(0xffffffffu, bits, 1);
+    const uint32_t b2 = __shfl_down_sync(0xffffffffu, bits, 2);
+    const uint32_t b3 = __shfl_down_sync(0xffffffffu, bits, 3);
+    if (j < n && tid % 4 == 0)
+      tmask[j] = (uint64_t)(bits | (b1 << 16)) | ((uint64_t)(b2 | (b3 << 16)) << 32);
+  }
+  __syncthreads();  // the validity words are in place
+
+  const uint8_t* kb = static_cast<const uint8_t*>(a.k) + (b * a.sb + kh * a.sk) * 2;
+  const uint8_t* vb = static_cast<const uint8_t*>(a.v) + (b * a.sb + kh * a.sk) * 2;
+  const int64_t row_stride = a.st * 2;
+  // each thread copies one 16-byte column chunk of every RPP-th row
+  constexpr int RPP = MTHREADS / S::CR;  // rows per pass
+  const int ch = tid % S::CR, p0 = tid / S::CR;
+  const bool copier = p0 < RPP;  // hd 160: 120 of 128 threads copy
+  const bool host = a.kv_host != 0;
+  auto issue = [&](int i, int slot) {
+    const uint64_t ok = tmask[i];
+    const int64_t g0 = (int64_t)(tile_of(i) * TP + p0) * row_stride + ch * 16;
+    uint32_t so = smem_u32(ring + slot * S::STAGE + p0 * S::PITCH + ch * 16);
+    if (!copier) return;
+#pragma unroll
+    for (int p = p0, j = 0; j < (TP + RPP - 1) / RPP; ++j, p += RPP, so += RPP * S::PITCH) {
+      if (p >= TP) break;
+      const bool on = (ok >> p) & 1;
+      const int64_t off = on ? g0 + (int64_t)(p - p0) * row_stride : 0;
+      cp_async16(so, kb + off, on, host);
+      cp_async16(so + TP * S::PITCH, vb + off, on, host);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) {
+    if (i < n) issue(i, i);
+    cp_commit();
+  }
+
+  // Q into shared memory as bf16 (hi, and lo = q - hi for fp32 q); the
+  // first barrier of the loop publishes it
+#pragma unroll
+  for (int j = 0; j < QPT; ++j) {
+    const int c = tid + j * MTHREADS;
+    if (c >= QCH) break;
+    const int at = (c * EPC / HD) * S::PITCH + (c * EPC % HD) * 2;
+    if (LO) {
+      uint32_t h0, h1, l0, l1;
+      split2(__uint_as_float(qraw[j].x), __uint_as_float(qraw[j].y), h0, l0);
+      split2(__uint_as_float(qraw[j].z), __uint_as_float(qraw[j].w), h1, l1);
+      *reinterpret_cast<uint2*>(qhi + at) = make_uint2(h0, h1);
+      *reinterpret_cast<uint2*>(qlo + at) = make_uint2(l0, l1);
+    } else {
+      *reinterpret_cast<uint4*>(qhi + at) = qraw[j];
+    }
+  }
+
+  const int wt = warp / S::WC, wc = warp % S::WC;
+  const int g = lane >> 2, tg = lane & 3;
+  const int pw0 = wt * S::PW;  // this warp's first position in a stage
+  // scores are kept as z = dot · log2(e) / sqrt(hd), so p = 2^(z - m)
+  const float zscale = LOG2E / sqrtf((float)HD);
+  float acc[S::NO][4];
+#pragma unroll
+  for (int o = 0; o < S::NO; ++o)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[o][e] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;  // rows g, g + 8 (z units)
+
+  // ldmatrix row/column of this lane: A (Q) and K take matrices in the
+  // order (rows 0-7 | 8-15) x (cols 0-7 | 8-15) as the fragments want them
+  const int qr = (lane & 7) + ((lane >> 3) & 1) * 8, qc = (lane >> 4) * 8;
+  const int kr = (lane & 7) + (lane >> 4) * 8, kc = ((lane >> 3) & 1) * 8;
+  const int vr = (lane & 7) + ((lane >> 3) & 1) * 8, vc = (lane >> 4) * 8;
+
+  for (int i = 0; i < n; ++i) {
+    cp_wait<NS - 2>();
+    __syncthreads();  // stage i landed for all; stage i - 1 is free
+    if (i + NS - 1 < n) issue(i + NS - 1, (i + NS - 1) % NS);
+    cp_commit();
+    const uint64_t ok = tmask[i];
+    const uint8_t* sk = ring + (i % NS) * S::STAGE;
+    const uint8_t* sv = sk + TP * S::PITCH;
+
+    // scores: (16 heads) x (PW positions) = Q · Kᵀ, in two accumulator
+    // chains (q's low half, or the odd k-steps, in the second)
+    float s[S::NT][4], s2[S::NT][4];
+#pragma unroll
+    for (int nt = 0; nt < S::NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = s2[nt][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < S::KQ; ++ks) {
+      uint32_t qa[4], ql[4];
+      ldsm_x4(qa, smem_u32(qhi + qr * S::PITCH + (ks * 16 + qc) * 2));
+      if (LO) ldsm_x4(ql, smem_u32(qlo + qr * S::PITCH + (ks * 16 + qc) * 2));
+#pragma unroll
+      for (int np = 0; np < S::NT / 2; ++np) {
+        uint32_t kf[4];
+        ldsm_x4(kf, smem_u32(sk + (pw0 + np * 16 + kr) * S::PITCH + (ks * 16 + kc) * 2));
+        if (LO || ks % 2 == 0) {
+          mma16816(s[2 * np], qa, kf[0], kf[1]);
+          mma16816(s[2 * np + 1], qa, kf[2], kf[3]);
+        } else {
+          mma16816(s2[2 * np], qa, kf[0], kf[1]);
+          mma16816(s2[2 * np + 1], qa, kf[2], kf[3]);
+        }
+        if (LO) {
+          mma16816(s2[2 * np], ql, kf[0], kf[1]);
+          mma16816(s2[2 * np + 1], ql, kf[2], kf[3]);
+        }
+      }
+    }
+
+    // online softmax on the fragments: thread holds rows g, g + 8
+    float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+    for (int nt = 0; nt < S::NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int p = pw0 + nt * 8 + tg * 2 + (e & 1);
+        s[nt][e] = ((ok >> p) & 1) ? (s[nt][e] + s2[nt][e]) * zscale : NEG_INF;
+      }
+      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+    }
+    const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+    const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    l0 *= al0;
+    l1 *= al1;
+    if (__any_sync(0xffffffffu, al0 != 1.f || al1 != 1.f)) {  // a row's max moved
+#pragma unroll
+      for (int o = 0; o < S::NO; ++o) {
+        acc[o][0] *= al0; acc[o][1] *= al0;
+        acc[o][2] *= al1; acc[o][3] *= al1;
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < S::NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = s[nt][e] == NEG_INF ? 0.f : exp2f(s[nt][e] - (e < 2 ? mn0 : mn1));
+        s[nt][e] = p;
+        if (e < 2) l0 += p; else l1 += p;
+      }
+
+    // acc += P · V, P as (hi, lo) bf16 A fragments straight from the scores
+#pragma unroll
+    for (int kk = 0; kk < S::KP; ++kk) {
+      uint32_t ph[4], pl[4];
+      split2(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+      split2(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+      split2(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+      split2(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int op = 0; op < S::NO / 2; ++op) {
+        uint32_t vf[4];
+        ldsm_x4_t(vf, smem_u32(sv + (pw0 + kk * 16 + vr) * S::PITCH +
+                               (wc * S::CW + op * 16 + vc) * 2));
+        mma16816(acc[2 * op], ph, vf[0], vf[1]);
+        mma16816(acc[2 * op], pl, vf[0], vf[1]);
+        mma16816(acc[2 * op + 1], ph, vf[2], vf[3]);
+        mma16816(acc[2 * op + 1], pl, vf[2], vf[3]);
+      }
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();  // the ring is free: it becomes the merge area
+
+  // Merge.  The position groups of every split of this (sequence, KV
+  // head) hold (m, l, acc) for the 16 rows; the splits form one thread
+  // block cluster.  Each block publishes its rows' (m, l), reads every
+  // split's, and from the row maxima M weighs each group by 2^(m - M).
+  // The output elements are dealt out to the blocks in rank order; each
+  // block pushes its weighted share of every element into the owner's
+  // shared memory, and the owner sums the splits in rank order.
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const int nsp = a.splits;
+  const int chunk = (G * HD + nsp - 1) / nsp;    // output elements per owner
+  float* macc = reinterpret_cast<float*>(ring);  // (WT, 16, MP) group acc
+  float* mm = macc + S::WT * 16 * S::MP;         // (WT, 16) group m, then weight
+  float* ml = mm + S::WT * 16;                   // (WT, 16) group l
+  float* bm = ml + S::WT * 16;                   // (16) block m, l
+  float* bl = bm + 16;
+  float* cm = bl + 16;                           // (MAX_SPLITS, 16) splits' m, l
+  float* cl = cm + MAX_SPLITS * 16;
+  float* rl = cl + MAX_SPLITS * 16;              // (16) merged m, l
+  float* rm = rl + 16;
+  float* inbox = rm + 16;                        // (nsp, chunk) pushed shares
+#pragma unroll
+  for (int o = 0; o < S::NO; ++o) {
+    const int col = wc * S::CW + o * 8 + tg * 2;
+    *reinterpret_cast<float2*>(macc + (wt * 16 + g) * S::MP + col) =
+        make_float2(acc[o][0], acc[o][1]);
+    *reinterpret_cast<float2*>(macc + (wt * 16 + g + 8) * S::MP + col) =
+        make_float2(acc[o][2], acc[o][3]);
+  }
+  if (wc == 0 && tg == 0) {
+    mm[wt * 16 + g] = m0; mm[wt * 16 + g + 8] = m1;
+    ml[wt * 16 + g] = l0; ml[wt * 16 + g + 8] = l1;
+  }
+  __syncthreads();
+  if (tid < 16) {
+    float mx = NEG_INF, y = 0.f;
+#pragma unroll
+    for (int w = 0; w < S::WT; ++w) mx = fmaxf(mx, mm[w * 16 + tid]);
+#pragma unroll
+    for (int w = 0; w < S::WT; ++w) y += ml[w * 16 + tid] * exp2f(mm[w * 16 + tid] - mx);
+    bm[tid] = mx;
+    bl[tid] = y;
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  cluster.sync();  // every split's (m, l) is published
+  if (tid < nsp * 16) {
+    cm[tid] = cluster.map_shared_rank(bm, tid / 16)[tid % 16];
+    cl[tid] = cluster.map_shared_rank(bl, tid / 16)[tid % 16];
+  }
+  __syncthreads();
+  if (tid < 16) {  // row r: merged m and l, and this block's group weights
+    float mx = NEG_INF, y = 0.f;
+    for (int sp = 0; sp < nsp; ++sp) mx = fmaxf(mx, cm[sp * 16 + tid]);
+    for (int sp = 0; sp < nsp; ++sp) y += cl[sp * 16 + tid] * exp2f(cm[sp * 16 + tid] - mx);
+    rm[tid] = mx;
+    rl[tid] = y;
+#pragma unroll
+    for (int w = 0; w < S::WT; ++w) mm[w * 16 + tid] = exp2f(mm[w * 16 + tid] - mx);
+  }
+  __syncthreads();
+  for (int i = tid; i < G * HD; i += MTHREADS) {  // push this split's shares
+    const int r = i / HD, d = i % HD;
+    float x = 0.f;
+#pragma unroll
+    for (int w = 0; w < S::WT; ++w) x += macc[(w * 16 + r) * S::MP + d] * mm[w * 16 + r];
+    const int owner = i / chunk;
+    cluster.map_shared_rank(inbox, owner)[rank * chunk + (i - owner * chunk)] = x;
+  }
+  cluster.sync();  // every share has landed; no block reads another after this
+  const int64_t o0 = (int64_t)bk * G;
+  for (int j = tid; j < chunk; j += MTHREADS) {
+    const int i = rank * chunk + j;
+    if (i >= G * HD) break;
+    const int r = i / HD, d = i % HD;
+    float x = 0.f;
+    for (int sp = 0; sp < nsp; ++sp) x += inbox[sp * chunk + j];
+    if (a.out != nullptr) {
+      a.out[(o0 + r) * HD + d] = x / fmaxf(rl[r], 1e-30f);
+    } else {
+      a.acc_out[(o0 + r) * HD + d] = x;
+      if (d == 0) {  // m back from z units to scores
+        a.m_out[o0 + r] = rm[r] == NEG_INF ? NEG_INF : rm[r] / LOG2E;
+        a.l_out[o0 + r] = rl[r];
+      }
+    }
   }
 }
 
-// Four consecutive elements of a V row in shared memory, as floats.
-__device__ __forceinline__ void quad(const uint8_t* p, float* out, float) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-}
+// ---------------------------------------------------------------------------
+// fp32 K/V: the CUDA-core body
 
-__device__ __forceinline__ void quad(const uint8_t* p, float* out, __nv_bfloat16) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
-}
+constexpr int THREADS = 256;
+constexpr int NWARPS = THREADS / 32;
+constexpr int TPF = 32;  // positions per tile: one per lane in the softmax
 
-template <typename KV, int HD>
+template <int HD>
+struct F32Tile {
+  static constexpr int ROW = HD * 4;       // bytes of one K or V row
+  static constexpr int CH = ROW / 16;      // 16-byte chunks per row
+  static constexpr int PITCH = ROW + 16;   // padded: conflict-free row reads
+  static constexpr int KV_BYTES = 2 * TPF * PITCH;
+};
+
+template <int HD>
 __global__ void __launch_bounds__(THREADS)
-decode_kernel(Args a) {
-  constexpr int ROW = HD * (int)sizeof(KV);  // bytes of one K or V row
-  constexpr int CH = ROW / 16;               // 16-byte chunks per row
-  constexpr int EPC = 16 / (int)sizeof(KV);  // elements per chunk
-  constexpr int PITCH = ROW + 16;            // padded: conflict-free row reads
-  constexpr int NCH = (TP * CH + THREADS - 1) / THREADS;
+decode_f32_kernel(Args a) {
+  using F = F32Tile<HD>;
+  constexpr int CH = F::CH, PITCH = F::PITCH;
+  constexpr int NCH = (TPF * CH + THREADS - 1) / THREADS;
   constexpr int QD = HD / 4;                 // quads of one row
   constexpr int NG = THREADS / QD;           // head groups of the P·V pass
   constexpr int JH = (MAX_G + NG - 1) / NG;  // heads per thread in that pass
   // QD need not divide THREADS (hd 160: 6 groups of 40 threads); the
   // threads past the last whole group take no part in P·V
 
-  __shared__ __align__(16) uint8_t sk[TP * PITCH];
-  __shared__ __align__(16) uint8_t sv[TP * PITCH];
-  extern __shared__ __align__(16) float sq[];  // G * HD, sized at launch
-  __shared__ float sp[MAX_G * TP];
+  extern __shared__ __align__(16) uint8_t dsm[];  // K, V tiles, then q (G * HD)
+  uint8_t* sk = dsm;
+  uint8_t* sv = dsm + TPF * PITCH;
+  float* sq = reinterpret_cast<float*>(dsm + F::KV_BYTES);
+  __shared__ float sp[MAX_G * TPF];
   __shared__ float sm[MAX_G], sl[MAX_G], salpha[MAX_G];
 
   const int bk = blockIdx.x;
@@ -139,13 +642,13 @@ decode_kernel(Args a) {
   const int t1 = min(t_end, t0 + chunk);
 
   for (int i = tid; i < G * HD; i += THREADS)
-    sq[i] = a.q[((int64_t)b * a.K * G + kh * G) * HD + i];
+    sq[i] = load_q(a, ((int64_t)b * a.K * G + kh * G) * HD + i);
   if (tid < G) { sm[tid] = NEG_INF; sl[tid] = 0.f; }
   const uint8_t* kb = reinterpret_cast<const uint8_t*>(
-      static_cast<const KV*>(a.k) + b * a.sb + kh * a.sk);
+      static_cast<const float*>(a.k) + b * a.sb + kh * a.sk);
   const uint8_t* vb = reinterpret_cast<const uint8_t*>(
-      static_cast<const KV*>(a.v) + b * a.sb + kh * a.sk);
-  const int64_t row_stride = a.st * (int64_t)sizeof(KV);
+      static_cast<const float*>(a.v) + b * a.sb + kh * a.sk);
+  const int64_t row_stride = a.st * 4;
   const uint8_t* vm = a.valid != nullptr ? a.valid + b * a.valid_sb : nullptr;
   const float sqrt_hd = sqrtf((float)HD);
   const int dq = tid % QD, hg = tid / QD;
@@ -165,7 +668,7 @@ decode_kernel(Args a) {
     for (int j = 0; j < NCH; ++j) {
       const int i = tid + j * THREADS;
       rok[j] = false;
-      if (i < TP * CH) {
+      if (i < TPF * CH) {
         const int t = base + i / CH, c = i % CH;
         rok[j] = t < t1 && (vm == nullptr || vm[t]);
         if (rok[j]) {  // a masked position issues no load
@@ -177,14 +680,14 @@ decode_kernel(Args a) {
   };
 
   if (t0 < t1) fetch(t0);
-  for (int base = t0; base < t1; base += TP) {
+  for (int base = t0; base < t1; base += TPF) {
     __syncthreads();  // the previous tile is done with shared memory
     bool mine = false;
     const uint4 zero = make_uint4(0, 0, 0, 0);
 #pragma unroll
     for (int j = 0; j < NCH; ++j) {
       const int i = tid + j * THREADS;
-      if (i < TP * CH) {
+      if (i < TPF * CH) {
         const int p = i / CH, c = i % CH;
         *reinterpret_cast<uint4*>(sk + p * PITCH + c * 16) = rok[j] ? rk[j] : zero;
         *reinterpret_cast<uint4*>(sv + p * PITCH + c * 16) = rok[j] ? rv[j] : zero;
@@ -192,31 +695,33 @@ decode_kernel(Args a) {
       }
     }
     const bool any = __syncthreads_or(mine);
-    if (base + TP < t1) fetch(base + TP);
+    if (base + TPF < t1) fetch(base + TPF);
     if (!any) continue;  // a tile with no valid position costs no math
 
     // scores: one (head, position) pair per thread and step
-    for (int i = tid; i < G * TP; i += THREADS) {
-      const int g = i / TP, p = i % TP, t = base + p;
+    for (int i = tid; i < G * TPF; i += THREADS) {
+      const int g = i / TPF, p = i % TPF, t = base + p;
       float s = NEG_INF;
       if (t < t1 && (vm == nullptr || vm[t])) {
         float dot = 0.f;
 #pragma unroll
         for (int c = 0; c < CH; ++c) {
-          float kf[EPC];
-          to_float(*reinterpret_cast<const uint4*>(sk + p * PITCH + c * 16), kf, KV());
-#pragma unroll
-          for (int e = 0; e < EPC; ++e) dot = fmaf(sq[g * HD + c * EPC + e], kf[e], dot);
+          const float4 kf = *reinterpret_cast<const float4*>(sk + p * PITCH + c * 16);
+          const float* qg = sq + g * HD + c * 4;
+          dot = fmaf(qg[0], kf.x, dot);
+          dot = fmaf(qg[1], kf.y, dot);
+          dot = fmaf(qg[2], kf.z, dot);
+          dot = fmaf(qg[3], kf.w, dot);
         }
         s = dot / sqrt_hd;
       }
-      sp[g * TP + p] = s;
+      sp[g * TPF + p] = s;
     }
     __syncthreads();
 
     // online softmax over the tile: one warp per head, one lane per position
     for (int g = warp; g < G; g += NWARPS) {
-      const float s = sp[g * TP + lane];
+      const float s = sp[g * TPF + lane];
       float mx = s;
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
@@ -226,7 +731,7 @@ decode_kernel(Args a) {
       float sum = pv;
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      sp[g * TP + lane] = pv;
+      sp[g * TPF + lane] = pv;
       __syncwarp();
       if (lane == 0) {
         const float alpha = expf(m_old - m_new);
@@ -246,12 +751,13 @@ decode_kernel(Args a) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[j][e] *= alpha;
 #pragma unroll 4
-        for (int p = 0; p < TP; ++p) {
-          const float w = sp[g * TP + p];
-          float vf[4];
-          quad(sv + p * PITCH + dq * 4 * (int)sizeof(KV), vf, KV());
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[j][e] = fmaf(w, vf[e], acc[j][e]);
+        for (int p = 0; p < TPF; ++p) {
+          const float w = sp[g * TPF + p];
+          const float4 vf = *reinterpret_cast<const float4*>(sv + p * PITCH + dq * 16);
+          acc[j][0] = fmaf(w, vf.x, acc[j][0]);
+          acc[j][1] = fmaf(w, vf.y, acc[j][1]);
+          acc[j][2] = fmaf(w, vf.z, acc[j][2]);
+          acc[j][3] = fmaf(w, vf.w, acc[j][3]);
         }
       }
     }
@@ -309,47 +815,76 @@ unsigned grid_for(int64_t work) {
   return (unsigned)(blocks < 1 ? 1 : blocks);
 }
 
-template <typename KV, int HD>
-cudaError_t launch_g(const Args& a, cudaStream_t s) {
-  if (a.G < 1 || a.G > MAX_G) return cudaErrorInvalidValue;
-  // static shared memory of decode_kernel<KV, HD>, beside the dynamic sq
-  constexpr int PITCH = HD * (int)sizeof(KV) + 16;
-  constexpr int STATIC = 2 * TP * PITCH + (MAX_G * TP + 3 * MAX_G) * 4;
-  const int dyn = a.G * HD * (int)sizeof(float);
-  if (STATIC + dyn > 48 * 1024) {  // fp32 at hd 160 with G > 7: opt in
-    const cudaError_t err = cudaFuncSetAttribute(
-        decode_kernel<KV, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((unsigned)(a.B * a.K), (unsigned)a.splits);
-  decode_kernel<KV, HD><<<grid, THREADS, dyn, s>>>(a);
+template <typename Kern>
+cudaError_t allow_smem(Kern* kern, int bytes) {
+  if (bytes > SMEM_MAX) return cudaErrorInvalidValue;
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int HD>
+cudaError_t launch_f32(const Args& a, cudaStream_t s) {
+  const int dyn = F32Tile<HD>::KV_BYTES + a.G * HD * (int)sizeof(float);
+  const cudaError_t err = allow_smem(decode_f32_kernel<HD>, dyn);
+  if (err != cudaSuccess) return err;
+  decode_f32_kernel<HD><<<dim3((unsigned)(a.B * a.K), (unsigned)a.splits), THREADS, dyn, s>>>(a);
   return cudaSuccess;
 }
 
-template <typename KV>
-cudaError_t launch_hd(const Args& a, int hd, cudaStream_t s) {
-  switch (hd) {
-    case 16: return launch_g<KV, 16>(a, s);
-    case 32: return launch_g<KV, 32>(a, s);
-    case 64: return launch_g<KV, 64>(a, s);
-    case 128: return launch_g<KV, 128>(a, s);
-    case 160: return launch_g<KV, 160>(a, s);
-    default: return cudaErrorInvalidValue;
-  }
+template <int HD, bool LO>
+cudaError_t launch_mma(const Args& a, cudaStream_t s) {
+  using S = Tile<HD>;
+  if (a.splits > MAX_SPLITS) return cudaErrorInvalidValue;
+  const int tiles = (a.T + TP - 1) / TP;
+  const int share = (tiles + a.splits - 1) / a.splits;
+  const int64_t dyn = NS * S::STAGE + (LO ? 2 : 1) * S::QBYTES + 12 * (int64_t)share +
+                      4 * ((tiles + 31) / 32);
+  // refused when the share's tile list does not fit beside the ring
+  const cudaError_t err = allow_smem(decode_mma_kernel<HD, LO>, (int)dyn);
+  if (err != cudaSuccess) return err;
+  // the splits of one (sequence, KV head) form a cluster
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(a.B * a.K), (unsigned)a.splits);
+  cfg.blockDim = dim3(MTHREADS);
+  cfg.dynamicSmemBytes = (size_t)dyn;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = (unsigned)a.splits;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, decode_mma_kernel<HD, LO>, a);
 }
 
-int run(Args a, int hd, int kv_dtype, float* acc_out, float* m_out, float* l_out,
-        float* out, void* stream) {
+template <int HD>
+cudaError_t launch_hd(const Args& a, int kv_dtype, cudaStream_t s) {
+  if (kv_dtype == 0) return launch_f32<HD>(a, s);
+  if (kv_dtype != 1) return cudaErrorInvalidValue;
+  return a.q_dtype == 0 ? launch_mma<HD, true>(a, s) : launch_mma<HD, false>(a, s);
+}
+
+int run(const Args& a, int hd, int kv_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a.B > 0 && a.K > 0) {
-    cudaError_t err = kv_dtype == 0 ? launch_hd<float>(a, hd, s)
-                    : kv_dtype == 1 ? launch_hd<__nv_bfloat16>(a, hd, s)
-                                    : cudaErrorInvalidValue;
+    if (a.G < 1 || a.G > MAX_G || a.splits < 1 || (a.q_dtype != 0 && a.q_dtype != 1))
+      return (int)cudaErrorInvalidValue;
+    cudaError_t err;
+    switch (hd) {
+      case 16: err = launch_hd<16>(a, kv_dtype, s); break;
+      case 32: err = launch_hd<32>(a, kv_dtype, s); break;
+      case 64: err = launch_hd<64>(a, kv_dtype, s); break;
+      case 128: err = launch_hd<128>(a, kv_dtype, s); break;
+      case 160: err = launch_hd<160>(a, kv_dtype, s); break;
+      case 256: err = launch_hd<256>(a, kv_dtype, s); break;
+      default: err = cudaErrorInvalidValue;
+    }
     if (err != cudaSuccess) return (int)err;
-    if (out != nullptr || a.splits > 1) {
+    if (kv_dtype == 0 && (a.out != nullptr || a.splits > 1)) {  // the fp32 body's merge
       const int64_t bk = (int64_t)a.B * a.K;
       combine_kernel<<<grid_for(bk * a.G * hd), THREADS, 0, s>>>(
-          a.acc, a.m, a.l, bk, a.splits, a.G, hd, acc_out, m_out, l_out, out);
+          a.acc, a.m, a.l, bk, a.splits, a.G, hd, a.acc_out, a.m_out, a.l_out, a.out);
     }
   }
   return (int)cudaGetLastError();
@@ -389,31 +924,37 @@ __global__ void append_kernel(const Ti* __restrict__ k_src, const Ti* __restrict
 
 }  // namespace
 
-// Partial form.  q (B, H, hd) fp32 contiguous; k, v (B, T, K, hd) fp32 or
-// bf16 (kv_dtype 0 / 1) with element strides sb, st, sk and a contiguous
-// last dim, rows 16-byte (fp32) or 8-byte (bf16) aligned; valid (B, T)
-// bytes with row stride valid_sb.  Scratch acc (B, K, splits, G, hd), m
-// and l (B, K, splits, G); outputs acc_out (B, H, hd), m_out and l_out
-// (B, H).  With splits == 1 the scratch may be the output itself, and no
-// merge runs.  hd is 16, 32, 64, 128 or 160 and G = H / K at most 16.
-// Returns cudaGetLastError().
+// Partial form.  q (B, H, hd) contiguous, fp32 or bf16 (q_dtype 0 / 1);
+// k, v (B, T, K, hd) fp32 or bf16 (kv_dtype 0 / 1), in HBM or (kv_host 1)
+// in pinned host memory, with element strides
+// sb, st, sk and a contiguous last dim, rows 16-byte aligned; valid (B, T)
+// bytes with row stride valid_sb.  Outputs acc_out (B, H, hd), m_out and
+// l_out (B, H).  fp32 K/V also take scratch acc (B, K, splits, G, hd), m
+// and l (B, K, splits, G), which may be the outputs themselves when
+// splits == 1 (then no merge runs); bf16 K/V take none (null is fine),
+// at most 8 splits, and a shared-memory tile list that fits the block.
+// hd is 16, 32, 64, 128, 160 or 256 and G = H / K at most 16.  Returns
+// cudaGetLastError().
 extern "C" int repro_decode_attention_partial(
-    const float* q, const void* k, const void* v, int kv_dtype, int64_t sb, int64_t st,
-    int64_t sk, const uint8_t* valid, int64_t valid_sb, int B, int T, int K, int G,
-    int hd, int splits, float* acc, float* m, float* l, float* acc_out, float* m_out,
+    const void* q, int q_dtype, const void* k, const void* v, int kv_dtype, int kv_host,
+    int64_t sb, int64_t st, int64_t sk, const uint8_t* valid, int64_t valid_sb, int B, int T, int K,
+    int G, int hd, int splits, float* acc, float* m, float* l, float* acc_out, float* m_out,
     float* l_out, void* stream) {
-  Args a{q, k, v, sb, st, sk, valid, valid_sb, nullptr, B, T, K, G, splits, acc, m, l};
-  return run(a, hd, kv_dtype, acc_out, m_out, l_out, nullptr, stream);
+  const Args a{q, q_dtype, k, v, kv_host, sb, st, sk, valid, valid_sb, nullptr, B, T, K, G, splits,
+               acc, m, l, acc_out, m_out, l_out, nullptr};
+  return run(a, hd, kv_dtype, stream);
 }
 
 // Normalised form: as above with lengths (B,) int32 in place of the mask;
-// out (B, H, hd) fp32 gets acc / max(l, 1e-30) (0 where lengths[b] <= 0).
+// out (B, H, hd) fp32 gets acc / max(l, 1e-30) (0 where lengths[b] <= 0);
+// the fp32 body always takes the scratch here.
 extern "C" int repro_decode_attention(
-    const float* q, const void* k, const void* v, int kv_dtype, int64_t sb, int64_t st,
-    int64_t sk, const int32_t* lengths, int B, int T, int K, int G, int hd, int splits,
-    float* acc, float* m, float* l, float* out, void* stream) {
-  Args a{q, k, v, sb, st, sk, nullptr, 0, lengths, B, T, K, G, splits, acc, m, l};
-  return run(a, hd, kv_dtype, nullptr, nullptr, nullptr, out, stream);
+    const void* q, int q_dtype, const void* k, const void* v, int kv_dtype, int kv_host,
+    int64_t sb, int64_t st, int64_t sk, const int32_t* lengths, int B, int T, int K, int G, int hd,
+    int splits, float* acc, float* m, float* l, float* out, void* stream) {
+  const Args a{q, q_dtype, k, v, kv_host, sb, st, sk, nullptr, 0, lengths, B, T, K, G, splits,
+               acc, m, l, nullptr, nullptr, nullptr, out};
+  return run(a, hd, kv_dtype, stream);
 }
 
 // Append scatter: k_src, v_src (B, row_elems) contiguous, dtype src_dtype;

@@ -3,24 +3,31 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import common
 
 #: head dims the kernel is built for
-HEAD_DIMS = (16, 32, 64, 128, 160)
+HEAD_DIMS = (16, 32, 64, 128, 160, 256)
 #: query heads per KV head the kernel is built for
 MAX_GROUP = 16
 #: SMs of an H100, for the split of T across blocks
 _SMS = 132
+#: positions per tile of the bf16 body (the unit a split counts)
+TILE = 64
+#: blocks per (sequence, KV head): the bf16 body merges them as one
+#: thread-block cluster, whose portable size is 8
+MAX_SPLITS = 8
 
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _ARGS = {
-    "repro_decode_attention_partial": [_P, _P, _P, _I, _I64, _I64, _I64, _P,
-                                       _I64, _I, _I, _I, _I, _I, _I, _P, _P,
-                                       _P, _P, _P, _P, _P],
-    "repro_decode_attention": [_P, _P, _P, _I, _I64, _I64, _I64, _P, _I, _I,
-                               _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "repro_decode_attention_partial": [_P, _I, _P, _P, _I, _I, _I64, _I64,
+                                       _I64, _P, _I64, _I, _I, _I, _I, _I, _I,
+                                       _P, _P, _P, _P, _P, _P, _P],
+    "repro_decode_attention": [_P, _I, _P, _P, _I, _I, _I64, _I64, _I64, _P,
+                               _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "repro_kv_append": [_P, _P, _I, _P, _P, _I, _P, _I, _I, _I64, _I64, _I64,
                         _P],
 }
@@ -34,10 +41,15 @@ def _fn(name: str):
 
 
 def splits_for(batch: int, kv_heads: int, positions: int) -> int:
-    """Pieces of T per (sequence, KV head): about four blocks per SM, and
-    no piece shorter than 128 positions (four tiles)."""
-    want = math.ceil(4 * _SMS / max(batch * kv_heads, 1))
-    return max(1, min(want, math.ceil(positions / 128)))
+    """Blocks per (sequence, KV head): one block each on about three
+    quarters of the SMs, at most ``MAX_SPLITS``, and no share shorter
+    than two tiles.  The bf16 body's splits run as one cluster; more
+    blocks than the card holds at once in clusters leave a second wave,
+    and fewer longer blocks spend less on the prologue and the merge.  At
+    the serving shape (16 x 2, 4096 positions) that is 3, the fastest
+    count of the sweep in ``chip_smoke.py`` phase 5."""
+    want = (3 * _SMS // 4) // max(batch * kv_heads, 1)
+    return max(1, min(want, MAX_SPLITS, math.ceil(positions / (2 * TILE))))
 
 
 def _check_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -54,6 +66,7 @@ def _check_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"kernel takes at most {MAX_GROUP}")
     if k.stride() != v.stride() or k.dtype != v.dtype:
         raise ValueError("k and v must share dtype and strides")
+    common.dtype_code(q.dtype)
     if k.stride(3) != 1:
         raise ValueError("k and v need a contiguous last dim")
     item = k.element_size()
@@ -63,47 +76,61 @@ def _check_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     common.dtype_code(k.dtype)
 
 
-def _scratch(B: int, K: int, splits: int, G: int, hd: int,
-             device: torch.device):
+def _scratch(k, B: int, K: int, splits: int, G: int, hd: int, device):
+    """The fp32 body's per-split (acc, m, l); the bf16 body takes none."""
+    if k.dtype != torch.float32:
+        return (None, None, None)
     f32 = dict(dtype=torch.float32, device=device)
     return (torch.empty((B, K, splits, G, hd), **f32),
             torch.empty((B, K, splits, G), **f32),
             torch.empty((B, K, splits, G), **f32))
 
 
-def attend_partial(q, k, v, valid, device: torch.device):
-    """Partial form on ``device``'s current stream: ``q`` (B,H,hd) and
-    ``valid`` (B,T) on the card, ``k``/``v`` (B,T,K,hd) in HBM or pinned
-    host memory.  Returns fp32 (acc (B,H,hd), m (B,H), l (B,H))."""
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _q(q, device):
+    """q on the card as it is (fp32 or bf16), contiguous, 16-byte aligned."""
+    q = q.to(device).contiguous()
+    return q if q.data_ptr() % 16 == 0 else q.clone()
+
+
+def attend_partial(q, k, v, valid, device: torch.device, splits=None):
+    """Partial form on ``device``'s current stream: ``q`` (B,H,hd, fp32 or
+    bf16, taken as it is) and ``valid`` (B,T) on the card, ``k``/``v``
+    (B,T,K,hd) in HBM or pinned host memory.  ``splits`` overrides
+    :func:`splits_for` (a measurement knob).  Returns fp32 (acc (B,H,hd),
+    m (B,H), l (B,H))."""
     _check_kv(q, k, v)
     B, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
     if valid.shape != (B, T):
         raise ValueError(f"valid {tuple(valid.shape)} != {(B, T)}")
-    q = q.to(device=device, dtype=torch.float32).contiguous()
+    q = _q(q, device)
     valid = valid.to(device=device, dtype=torch.bool)
     if valid.stride(1) != 1:
         valid = valid.contiguous()
-    splits = splits_for(B, K, T)
-    acc, m, l = _scratch(B, K, splits, G, hd, device)
-    if splits == 1:
-        out = (acc.view(B, H, hd), m.view(B, H), l.view(B, H))
-    else:
-        out = (torch.empty((B, H, hd), dtype=torch.float32, device=device),
-               torch.empty((B, H), dtype=torch.float32, device=device),
-               torch.empty((B, H), dtype=torch.float32, device=device))
+    splits = splits or splits_for(B, K, T)
+    f32 = dict(dtype=torch.float32, device=device)
+    out = (torch.empty((B, H, hd), **f32), torch.empty((B, H), **f32),
+           torch.empty((B, H), **f32))
+    scratch = _scratch(k, B, K, splits, G, hd, device)
+    if splits == 1 and scratch[0] is not None:  # no merge: straight out
+        scratch = (out[0], out[1], out[2])
     err = _fn("repro_decode_attention_partial")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), common.dtype_code(k.dtype),
-        k.stride(0), k.stride(1), k.stride(2), valid.data_ptr(),
-        valid.stride(0), B, T, K, G, hd, splits, acc.data_ptr(),
-        m.data_ptr(), l.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-        out[2].data_ptr(), common.stream_handle(device))
+        q.data_ptr(), common.dtype_code(q.dtype), k.data_ptr(), v.data_ptr(),
+        common.dtype_code(k.dtype), int(not k.is_cuda), k.stride(0),
+        k.stride(1), k.stride(2), valid.data_ptr(), valid.stride(0), B, T, K,
+        G, hd, splits, *map(_ptr, scratch), *map(_ptr, out),
+        common.stream_handle(device))
     common.check(err, "decode_attention (partial) launch")
     return out
 
 
-def decode_attention(q, k, v, lengths, device: torch.device) -> torch.Tensor:
+def decode_attention(q, k, v, lengths, device: torch.device,
+                     splits=None) -> torch.Tensor:
     """Normalised form on ``device``'s current stream; (B,H,hd) fp32."""
     _check_kv(q, k, v)
     B, H, hd = q.shape
@@ -111,16 +138,16 @@ def decode_attention(q, k, v, lengths, device: torch.device) -> torch.Tensor:
     G = H // K
     if lengths.shape != (B,):
         raise ValueError(f"lengths {tuple(lengths.shape)} != {(B,)}")
-    q = q.to(device=device, dtype=torch.float32).contiguous()
+    q = _q(q, device)
     lengths = lengths.to(device=device, dtype=torch.int32).contiguous()
-    splits = splits_for(B, K, T)
-    acc, m, l = _scratch(B, K, splits, G, hd, device)
+    splits = splits or splits_for(B, K, T)
     out = torch.empty((B, H, hd), dtype=torch.float32, device=device)
     err = _fn("repro_decode_attention")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), common.dtype_code(k.dtype),
-        k.stride(0), k.stride(1), k.stride(2), lengths.data_ptr(), B, T, K, G,
-        hd, splits, acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-        out.data_ptr(), common.stream_handle(device))
+        q.data_ptr(), common.dtype_code(q.dtype), k.data_ptr(), v.data_ptr(),
+        common.dtype_code(k.dtype), int(not k.is_cuda), k.stride(0),
+        k.stride(1), k.stride(2), lengths.data_ptr(), B, T, K, G, hd, splits,
+        *map(_ptr, _scratch(k, B, K, splits, G, hd, device)), out.data_ptr(),
+        common.stream_handle(device))
     common.check(err, "decode_attention launch")
     return out
 

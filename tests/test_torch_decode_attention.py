@@ -23,6 +23,8 @@ from repro_torch.models import attention as t_attn  # noqa: E402
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 SWEEP = [(2, 8, 2, 32, 128, 32), (1, 4, 4, 64, 256, 64),
          (3, 8, 1, 16, 64, 64), (2, 16, 16, 32, 128, 128)]
+#: recurrentgemma-9b's heads: 16 query heads on 1 KV head of 256
+RG_256 = (2, 16, 1, 256, 128, 64)
 
 
 def _pair(x: np.ndarray, dtype: str):
@@ -65,7 +67,8 @@ def cuda():
 
 
 # -- partial form: plain version vs the reference's attend_partial --------------
-@pytest.mark.parametrize("B,H,K,hd,T,_block", SWEEP + [(16, 24, 2, 128, 64, 64)])
+@pytest.mark.parametrize("B,H,K,hd,T,_block",
+                         SWEEP + [(16, 24, 2, 128, 64, 64), RG_256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attend_partial_matches_reference(B, H, K, hd, T, _block, dtype):
     (qj, qt), (kj, kt), (vj, vt), valid = _inputs(B, H, K, hd, T, dtype,
@@ -101,7 +104,7 @@ def test_merge_partials_matches_reference(n_parts):
 
 
 # -- normalised form: plain version vs the Pallas kernel and its oracle --------
-@pytest.mark.parametrize("B,H,K,hd,T,block", SWEEP)
+@pytest.mark.parametrize("B,H,K,hd,T,block", SWEEP + [RG_256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_sweep(B, H, K, hd, T, block, dtype):
     (qj, qt), (kj, kt), (vj, vt), _ = _inputs(B, H, K, hd, T, dtype, T + hd)
@@ -184,8 +187,28 @@ def test_kernel_checks_shapes_before_launch():
     k = torch.randn(2, 8, 2, 16)
     with pytest.raises(ValueError, match="at most"):
         t_kernel._check_kv(q, k, k)
-    assert t_kernel.splits_for(16, 2, 4096) == 17
+    assert t_kernel.splits_for(16, 2, 4096) == 3
     assert t_kernel.splits_for(2, 2, 64) == 1
+
+
+def test_splits_fit_one_cluster_and_keep_two_tiles_a_block():
+    """The splits of one (sequence, KV head) form one thread-block cluster
+    (at most ``MAX_SPLITS``), and no split is shorter than two tiles."""
+    for B, K, T in [(1, 1, 1 << 20), (1, 1, 4096), (16, 2, 4096),
+                    (2, 1, 128), (64, 8, 100_000), (1, 1, 1)]:
+        s = t_kernel.splits_for(B, K, T)
+        assert 1 <= s <= t_kernel.MAX_SPLITS
+        assert s == 1 or T // s >= 2 * t_kernel.TILE
+
+
+def test_kernel_takes_q_in_its_own_dtype():
+    """q in fp32 or bf16 goes to the kernel as it is (no cast launch);
+    other dtypes are refused before launch."""
+    k = torch.randn(2, 8, 2, 64).to(torch.bfloat16)
+    for dtype in (torch.float32, torch.bfloat16):
+        t_kernel._check_kv(torch.randn(2, 4, 64).to(dtype), k, k)
+    with pytest.raises(TypeError, match="float32 and bfloat16"):
+        t_kernel._check_kv(torch.randn(2, 4, 64).half(), k, k)
 
 
 def test_kernel_shape_check_takes_head_dim_160():
@@ -198,6 +221,20 @@ def test_kernel_shape_check_takes_head_dim_160():
         t_kernel._check_kv(q, k, k)
     q = torch.randn(2, 32, 96)
     k = torch.randn(2, 8, 8, 96)
+    with pytest.raises(ValueError, match="head dim"):
+        t_kernel._check_kv(q, k, k)
+
+
+def test_kernel_shape_check_takes_head_dim_256():
+    """recurrentgemma-9b's head dim (256, 16 query heads over 1 KV head)
+    is built; a head dim that is not, such as 96, is still refused."""
+    assert 256 in t_kernel.HEAD_DIMS
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn(2, 16, 256).to(dtype)
+        k = torch.randn(2, 8, 1, 256).to(dtype)
+        t_kernel._check_kv(q, k, k)
+    q = torch.randn(2, 16, 96)
+    k = torch.randn(2, 8, 1, 96)
     with pytest.raises(ValueError, match="head dim"):
         t_kernel._check_kv(q, k, k)
 
@@ -291,3 +328,89 @@ def test_kv_append_kernel_matches_plain(cuda, memory):
         assert t_da.APPEND_LAUNCHES.count == before + 1
         assert torch.equal(k_pool.cpu(), want_k)
         assert torch.equal(v_pool.cpu(), want_v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("memory", ["hbm", "pinned"])
+def test_decode_attention_kernel_head_dim_256(cuda, dtype, memory):
+    """recurrentgemma-9b's heads (hd 256, 16 query heads on 1 KV head):
+    both forms against the plain versions, ragged lengths, a fully masked
+    row, and the local 2048-position window as the partial form's mask."""
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    g = torch.Generator().manual_seed(2)
+    B, H, K, hd, T = 4, 16, 1, 256, 3000
+    q = torch.randn((B, H, hd), generator=g).to(dtype)
+    k = torch.randn((B, T, K, hd), generator=g).to(dtype)
+    v = torch.randn((B, T, K, hd), generator=g).to(dtype)
+    lengths = torch.tensor([1, 700, 2500, T])
+    t = torch.arange(T)[None]
+    window = (t < lengths[:, None]) & (t >= lengths[:, None] - 2048)
+    kk = k.to(cuda) if memory == "hbm" else k.pin_memory()
+    vv = v.to(cuda) if memory == "hbm" else v.pin_memory()
+    got = t_da.decode_attention(q.to(cuda), kk, vv, lengths.to(cuda))
+    torch.testing.assert_close(got.cpu(), t_ref.decode_attention(
+        q, k, v, lengths), atol=tol, rtol=tol * 10)
+    for valid in (torch.rand((B, T), generator=g) < 0.6, window):
+        valid[0] = False
+        acc, m, l = t_da.attend_partial(q.to(cuda), kk, vv, valid.to(cuda))
+        ra, rm, rl = t_ref.attend_partial(q, k, v, valid)
+        torch.cuda.synchronize()
+        rows = valid.any(1)
+        torch.testing.assert_close(acc.cpu()[rows], ra[rows], atol=tol,
+                                   rtol=tol * 10)
+        torch.testing.assert_close(m.cpu()[rows], rm[rows], atol=tol,
+                                   rtol=tol)
+        torch.testing.assert_close(l.cpu()[rows], rl[rows], atol=tol,
+                                   rtol=tol * 10)
+        assert bool((m[0] == t_ref.NEG_INF).all()) and not l[0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [128, 256])
+def test_fp32_q_over_bf16_kv_keeps_fp32_accuracy(cuda, hd):
+    """An fp32 q that bf16 cannot hold, over bf16 K/V: the kernel splits q
+    (and P) into bf16 high and low halves, so it lands within 1e-4 of the
+    fp32 plain version, where the same q rounded to bf16 does not."""
+    g = torch.Generator().manual_seed(3)
+    B, H, K, T = 4, 16, 1 if hd == 256 else 2, 700
+    q = torch.randn((B, H, hd), generator=g)
+    assert not torch.equal(q, q.bfloat16().float())
+    k = torch.randn((B, T, K, hd), generator=g).to(torch.bfloat16)
+    v = torch.randn((B, T, K, hd), generator=g).to(torch.bfloat16)
+    lengths = torch.tensor([5, 300, 699, T])
+    got = t_da.decode_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                                lengths.to(cuda)).cpu()
+    want = t_ref.decode_attention(q, k, v, lengths)
+    rounded = t_ref.decode_attention(q.bfloat16(), k, v, lengths)
+    assert float((got - want).abs().max()) <= 1e-4
+    assert float((rounded - want).abs().max()) > 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("memory", ["hbm", "pinned"])
+def test_splits_over_valid_tiles_only_at_the_end_of_t(cuda, memory):
+    """Valid positions only in the last tiles of T: the splits share those
+    few tiles (none of them idles on the masked stretch), and the merge
+    gives the plain result."""
+    g = torch.Generator().manual_seed(4)
+    B, H, K, hd, T = 16, 24, 2, 128, 4096
+    assert t_kernel.splits_for(B, K, T) > 1  # several splits share 4 tiles
+    q = torch.randn((B, H, hd), generator=g).to(torch.bfloat16)
+    k = torch.randn((B, T, K, hd), generator=g).to(torch.bfloat16)
+    v = torch.randn((B, T, K, hd), generator=g).to(torch.bfloat16)
+    valid = torch.zeros((B, T), dtype=torch.bool)
+    valid[:, T - 200:] = torch.rand((B, 200), generator=g) < 0.7
+    valid[1] = False
+    kk = k.to(cuda) if memory == "hbm" else k.pin_memory()
+    vv = v.to(cuda) if memory == "hbm" else v.pin_memory()
+    acc, m, l = t_da.attend_partial(q.to(cuda), kk, vv, valid.to(cuda))
+    ra, rm, rl = t_ref.attend_partial(q, k, v, valid)
+    torch.cuda.synchronize()
+    rows = valid.any(1)
+    torch.testing.assert_close(acc.cpu()[rows], ra[rows], atol=2e-2,
+                               rtol=0.2)
+    torch.testing.assert_close(m.cpu()[rows], rm[rows], atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(l.cpu()[rows], rl[rows], atol=2e-2, rtol=0.2)
+    assert bool((m[1] == t_ref.NEG_INF).all()) and not l[1].any()
