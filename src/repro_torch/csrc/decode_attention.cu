@@ -23,10 +23,17 @@
 // bf16 K/V (every serving pool) — `decode_mma_kernel`:
 // * One block of four warps per (sequence, KV head, split).  The split
 //   is taken over the tiles of 64 positions that hold a valid position:
-//   the block reads its row of the mask (T bytes, from L2), counts those
-//   tiles and takes its contiguous share of them, in order (normalised
-//   form: of the tiles below lengths[b]).  No block idles on a masked
-//   stretch of T, and a tile with no valid position is never read.
+//   the block reads its row of the mask (T bytes, from L2) into one bit
+//   per tile, counts those tiles and takes its contiguous share of them,
+//   in order (normalised form: of the tiles below lengths[b]).  No block
+//   idles on a masked stretch of T, and a tile with no valid position is
+//   never read.  The block's threads fill a table of (tile, 64-bit
+//   validity word) entries of the share together, 32 at a time, from
+//   those bits and the mask: two windows in the prologue (the second
+//   behind the ring's first copies), then after each window of 32 tiles
+//   its half takes the window after next.  The table's
+//   size does not grow with T; only the tile bits do (4 bytes per 2048
+//   positions).
 // * A ring of three 64-position K/V stages in shared memory, filled by
 //   16-byte `cp.async` (coalesced rows, each row padded by 16 bytes so
 //   the `ldmatrix` row addresses of a phase fall in distinct banks); one
@@ -131,6 +138,17 @@ constexpr int NS = 3;           // ring stages
 constexpr int MW = 4;           // warps per block
 constexpr int MTHREADS = MW * 32;
 constexpr int MAX_SPLITS = 8;   // blocks per (sequence, KV head): one portable cluster
+constexpr int WE = MTHREADS / 4;  // share entries a table fill takes (four threads each)
+
+// Hooks for tools/decode_attention_probe.py, left at these defaults in the
+// port's build: DA_P_LO 0 drops P's low half (an accuracy control), and
+// DA_MARK(k) marks the start of phase k of the bf16 body.
+#ifndef DA_P_LO
+#define DA_P_LO 1
+#endif
+#ifndef DA_MARK
+#define DA_MARK(k)
+#endif
 
 template <int HD>
 struct Tile {
@@ -159,8 +177,8 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 // 16 bytes global -> shared; with ok false the row is zero-filled and
 // nothing is read (source size 0).  From HBM the copy bypasses L1 (.cg);
-// from pinned host memory it goes through L1 (.ca), which reads PCIe at
-// several times the rate of .cg (tools/decode_attention_probe.py).
+// from pinned host memory it goes through L1 (.ca), which read PCIe at
+// three times the rate of .cg on an H100 (PERF.md).
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok, bool host) {
   if (host)
     asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n"
@@ -241,31 +259,54 @@ __device__ __forceinline__ uint32_t seg_bits(const uint8_t* vm, int t0, int t_en
   return bits;
 }
 
+// The tile of rank r among the set bits of tbits at or after tile t
+// (tiles if there is none).
+__device__ __forceinline__ int nth_set(const uint32_t* tbits, int t, int r, int tiles) {
+  for (int w = t / 32; w * 32 < tiles; ++w) {
+    uint32_t x = tbits[w];
+    if (w == t / 32) x &= ~0u << (t % 32);
+    const int c = __popc(x);
+    if (r < c) {  // select bit r of x by halves
+      int pos = 0;
+#pragma unroll
+      for (int h = 16; h > 0; h >>= 1) {
+        const int lo = __popc(x & ((1u << h) - 1u));
+        if (r >= lo) { r -= lo; x >>= h; pos += h; }
+      }
+      return w * 32 + pos;
+    }
+    r -= c;
+  }
+  return tiles;
+}
+
 // Shared memory, not registers, caps the blocks per SM.  Without a
 // minimum ptxas trades a few spilled bytes for a register-count occupancy
-// step the kernel can never use (hd 160 and 64); with one, at hd 256 it
-// schedules for ILP and spills more.  So hd <= 160 asks for one block per
-// SM and hd 256 leaves the minimum unset (0).
+// step the kernel can never use (hd 160 and 64, and hd 256 with a bf16
+// q); with one, at hd 256 with an fp32 q it schedules for ILP and spills
+// more.  So that one instantiation leaves the minimum unset (0) and the
+// others ask for one block per SM.
 template <int HD, bool LO>
-__global__ void __launch_bounds__(MTHREADS, HD > 160 ? 0 : 1)
+__global__ void __launch_bounds__(MTHREADS, HD > 160 && LO ? 0 : 1)
 decode_mma_kernel(Args a) {
   using S = Tile<HD>;
   extern __shared__ __align__(128) uint8_t smem[];
   uint8_t* ring = smem;
   uint8_t* qhi = ring + NS * S::STAGE;
   uint8_t* qlo = qhi + S::QBYTES;  // only with LO
+  // entry j of the share: its validity word and tile, in slot j % (2 WE)
+  uint64_t* smask = reinterpret_cast<uint64_t*>(qhi + (LO ? 2 : 1) * S::QBYTES);
+  int* stile = reinterpret_cast<int*>(smask + 2 * WE);
+  uint32_t* tbits = reinterpret_cast<uint32_t*>(stile + 2 * WE);  // a bit per tile: any valid
   const int tiles = (a.T + TP - 1) / TP;
   const int words = (tiles + 31) / 32;
-  const int share = (tiles + a.splits - 1) / a.splits;  // most tiles a block takes
-  uint64_t* tmask = reinterpret_cast<uint64_t*>(qhi + (LO ? 2 : 1) * S::QBYTES);
-  int* list = reinterpret_cast<int*>(tmask + share);
-  uint32_t* tbits = reinterpret_cast<uint32_t*>(list + share);
 
   const int bk = blockIdx.x;
   const int b = bk / a.K, kh = bk % a.K;
   const int split = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int G = a.G;
+  DA_MARK(0);
 
   // The prologue keeps its global round trips few and overlapped: Q's
   // loads and the mask scan's go out together, and the ring's first
@@ -289,11 +330,12 @@ decode_mma_kernel(Args a) {
   }
 
   // this block's share of the tiles that hold a valid position
+  DA_MARK(1);
   const uint8_t* vm = a.valid != nullptr ? a.valid + b * a.valid_sb : nullptr;
   const bool aligned = (reinterpret_cast<uintptr_t>(vm) & 15) == 0;
   int t_end = a.T;
   if (a.lengths != nullptr) t_end = min(t_end, max(a.lengths[b], 0));
-  int n, first = 0;
+  int n, first = 0, s0 = 0;
   if (vm == nullptr) {
     const int nt = (t_end + TP - 1) / TP;
     first = (int)((int64_t)split * nt / a.splits);
@@ -318,33 +360,29 @@ decode_mma_kernel(Args a) {
     __syncthreads();
     int nv = 0;
     for (int w = 0; w < words; ++w) nv += __popc(tbits[w]);
-    const int s0 = (int)((int64_t)split * nv / a.splits);
-    const int s1 = (int)((int64_t)(split + 1) * nv / a.splits);
-    n = s1 - s0;
-    for (int t = tid; t < tiles; t += MTHREADS) {  // one tile a thread: its rank
-      const uint32_t w = tbits[t / 32], below = w & ((1u << (t % 32)) - 1u);
-      if (((w >> (t % 32)) & 1u) == 0) continue;
-      int r = __popc(below);
-      for (int w2 = 0; w2 < t / 32; ++w2) r += __popc(tbits[w2]);
-      if (r >= s0 && r < s1) list[r - s0] = t;
-    }
+    s0 = (int)((int64_t)split * nv / a.splits);
+    n = (int)((int64_t)(split + 1) * nv / a.splits) - s0;
   }
-  __syncthreads();  // the list is in place
-  auto tile_of = [&](int i) { return vm != nullptr ? list[i] : first + i; };
-
-  // the 64-bit validity word of each tile in the share: four threads a
-  // tile, 16 positions each, gathered by shuffles
-  for (int j0 = 0; j0 < n; j0 += MTHREADS / 4) {
+  // Entries j0 .. j0 + WE - 1 of the share (those below n) into the table:
+  // four threads an entry, 16 positions each, gathered by shuffles.  Their
+  // tiles are those of rank r0, r0 + 1, .. among the set bits from tile
+  // `from` on.
+  auto fill = [&](int j0, int from, int r0) {
     const int j = j0 + tid / 4;
-    const uint32_t bits =
-        j < n ? seg_bits(vm, tile_of(j) * TP + (tid % 4) * 16, t_end, aligned) : 0u;
+    const bool mine = j < n;
+    int tile = 0;
+    if (mine) tile = vm == nullptr ? first + j : nth_set(tbits, from, r0 + tid / 4, tiles);
+    const uint32_t bits = mine ? seg_bits(vm, tile * TP + (tid % 4) * 16, t_end, aligned) : 0u;
     const uint32_t b1 = __shfl_down_sync(0xffffffffu, bits, 1);
     const uint32_t b2 = __shfl_down_sync(0xffffffffu, bits, 2);
     const uint32_t b3 = __shfl_down_sync(0xffffffffu, bits, 3);
-    if (j < n && tid % 4 == 0)
-      tmask[j] = (uint64_t)(bits | (b1 << 16)) | ((uint64_t)(b2 | (b3 << 16)) << 32);
-  }
-  __syncthreads();  // the validity words are in place
+    if (mine && tid % 4 == 0) {
+      smask[j % (2 * WE)] = (uint64_t)(bits | (b1 << 16)) | ((uint64_t)(b2 | (b3 << 16)) << 32);
+      stile[j % (2 * WE)] = tile;
+    }
+  };
+  fill(0, 0, s0);
+  __syncthreads();  // the first window is in place
 
   const uint8_t* kb = static_cast<const uint8_t*>(a.k) + (b * a.sb + kh * a.sk) * 2;
   const uint8_t* vb = static_cast<const uint8_t*>(a.v) + (b * a.sb + kh * a.sk) * 2;
@@ -355,8 +393,8 @@ decode_mma_kernel(Args a) {
   const bool copier = p0 < RPP;  // hd 160: 120 of 128 threads copy
   const bool host = a.kv_host != 0;
   auto issue = [&](int i, int slot) {
-    const uint64_t ok = tmask[i];
-    const int64_t g0 = (int64_t)(tile_of(i) * TP + p0) * row_stride + ch * 16;
+    const uint64_t ok = smask[i % (2 * WE)];
+    const int64_t g0 = (int64_t)(stile[i % (2 * WE)] * TP + p0) * row_stride + ch * 16;
     uint32_t so = smem_u32(ring + slot * S::STAGE + p0 * S::PITCH + ch * 16);
     if (!copier) return;
 #pragma unroll
@@ -392,6 +430,9 @@ decode_mma_kernel(Args a) {
     }
   }
 
+  // the second window, read from the loop's first barrier on
+  if (n > WE) fill(WE, 0, s0 + WE);
+
   const int wt = warp / S::WC, wc = warp % S::WC;
   const int g = lane >> 2, tg = lane & 3;
   const int pw0 = wt * S::PW;  // this warp's first position in a stage
@@ -410,101 +451,111 @@ decode_mma_kernel(Args a) {
   const int kr = (lane & 7) + (lane >> 4) * 8, kc = ((lane >> 3) & 1) * 8;
   const int vr = (lane & 7) + ((lane >> 3) & 1) * 8, vc = (lane >> 4) * 8;
 
-  for (int i = 0; i < n; ++i) {
-    cp_wait<NS - 2>();
-    __syncthreads();  // stage i landed for all; stage i - 1 is free
-    if (i + NS - 1 < n) issue(i + NS - 1, (i + NS - 1) % NS);
-    cp_commit();
-    const uint64_t ok = tmask[i];
-    const uint8_t* sk = ring + (i % NS) * S::STAGE;
-    const uint8_t* sv = sk + TP * S::PITCH;
+  DA_MARK(2);
+  for (int i0 = 0; i0 < n; i0 += WE) {  // windows of WE entries
+    for (int i = i0; i < min(n, i0 + WE); ++i) {
+      cp_wait<NS - 2>();
+      __syncthreads();  // stage i landed for all; stage i - 1 is free
+      if (i + NS - 1 < n) issue(i + NS - 1, (i + NS - 1) % NS);
+      cp_commit();
+      const uint64_t ok = smask[i % (2 * WE)];
+      const uint8_t* sk = ring + (i % NS) * S::STAGE;
+      const uint8_t* sv = sk + TP * S::PITCH;
 
-    // scores: (16 heads) x (PW positions) = Q · Kᵀ, in two accumulator
-    // chains (q's low half, or the odd k-steps, in the second)
-    float s[S::NT][4], s2[S::NT][4];
+      // scores: (16 heads) x (PW positions) = Q · Kᵀ, in two accumulator
+      // chains (q's low half, or the odd k-steps, in the second)
+      float s[S::NT][4], s2[S::NT][4];
 #pragma unroll
-    for (int nt = 0; nt < S::NT; ++nt)
+      for (int nt = 0; nt < S::NT; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = s2[nt][e] = 0.f;
+        for (int e = 0; e < 4; ++e) s[nt][e] = s2[nt][e] = 0.f;
 #pragma unroll
-    for (int ks = 0; ks < S::KQ; ++ks) {
-      uint32_t qa[4], ql[4];
-      ldsm_x4(qa, smem_u32(qhi + qr * S::PITCH + (ks * 16 + qc) * 2));
-      if (LO) ldsm_x4(ql, smem_u32(qlo + qr * S::PITCH + (ks * 16 + qc) * 2));
+      for (int ks = 0; ks < S::KQ; ++ks) {
+        uint32_t qa[4], ql[4];
+        ldsm_x4(qa, smem_u32(qhi + qr * S::PITCH + (ks * 16 + qc) * 2));
+        if (LO) ldsm_x4(ql, smem_u32(qlo + qr * S::PITCH + (ks * 16 + qc) * 2));
 #pragma unroll
-      for (int np = 0; np < S::NT / 2; ++np) {
-        uint32_t kf[4];
-        ldsm_x4(kf, smem_u32(sk + (pw0 + np * 16 + kr) * S::PITCH + (ks * 16 + kc) * 2));
-        if (LO || ks % 2 == 0) {
-          mma16816(s[2 * np], qa, kf[0], kf[1]);
-          mma16816(s[2 * np + 1], qa, kf[2], kf[3]);
-        } else {
-          mma16816(s2[2 * np], qa, kf[0], kf[1]);
-          mma16816(s2[2 * np + 1], qa, kf[2], kf[3]);
+        for (int np = 0; np < S::NT / 2; ++np) {
+          uint32_t kf[4];
+          ldsm_x4(kf, smem_u32(sk + (pw0 + np * 16 + kr) * S::PITCH + (ks * 16 + kc) * 2));
+          if (LO || ks % 2 == 0) {
+            mma16816(s[2 * np], qa, kf[0], kf[1]);
+            mma16816(s[2 * np + 1], qa, kf[2], kf[3]);
+          } else {
+            mma16816(s2[2 * np], qa, kf[0], kf[1]);
+            mma16816(s2[2 * np + 1], qa, kf[2], kf[3]);
+          }
+          if (LO) {
+            mma16816(s2[2 * np], ql, kf[0], kf[1]);
+            mma16816(s2[2 * np + 1], ql, kf[2], kf[3]);
+          }
         }
-        if (LO) {
-          mma16816(s2[2 * np], ql, kf[0], kf[1]);
-          mma16816(s2[2 * np + 1], ql, kf[2], kf[3]);
+      }
+
+      // online softmax on the fragments: thread holds rows g, g + 8
+      float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+      for (int nt = 0; nt < S::NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int p = pw0 + nt * 8 + tg * 2 + (e & 1);
+          s[nt][e] = ((ok >> p) & 1) ? (s[nt][e] + s2[nt][e]) * zscale : NEG_INF;
+        }
+        mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+      }
+      const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+      const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      l0 *= al0;
+      l1 *= al1;
+      if (__any_sync(0xffffffffu, al0 != 1.f || al1 != 1.f)) {  // a row's max moved
+#pragma unroll
+        for (int o = 0; o < S::NO; ++o) {
+          acc[o][0] *= al0; acc[o][1] *= al0;
+          acc[o][2] *= al1; acc[o][3] *= al1;
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < S::NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = s[nt][e] == NEG_INF ? 0.f : exp2f(s[nt][e] - (e < 2 ? mn0 : mn1));
+          s[nt][e] = p;
+          if (e < 2) l0 += p; else l1 += p;
+        }
+
+      // acc += P · V, P as (hi, lo) bf16 A fragments straight from the scores
+#pragma unroll
+      for (int kk = 0; kk < S::KP; ++kk) {
+        uint32_t ph[4], pl[4];
+        split2(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+        split2(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+        split2(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+        split2(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+        for (int op = 0; op < S::NO / 2; ++op) {
+          uint32_t vf[4];
+          ldsm_x4_t(vf, smem_u32(sv + (pw0 + kk * 16 + vr) * S::PITCH +
+                                 (wc * S::CW + op * 16 + vc) * 2));
+          mma16816(acc[2 * op], ph, vf[0], vf[1]);
+          if (DA_P_LO) mma16816(acc[2 * op], pl, vf[0], vf[1]);
+          mma16816(acc[2 * op + 1], ph, vf[2], vf[3]);
+          if (DA_P_LO) mma16816(acc[2 * op + 1], pl, vf[2], vf[3]);
         }
       }
     }
-
-    // online softmax on the fragments: thread holds rows g, g + 8
-    float mx0 = NEG_INF, mx1 = NEG_INF;
-#pragma unroll
-    for (int nt = 0; nt < S::NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int p = pw0 + nt * 8 + tg * 2 + (e & 1);
-        s[nt][e] = ((ok >> p) & 1) ? (s[nt][e] + s2[nt][e]) * zscale : NEG_INF;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-    }
-    const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
-    const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    l0 *= al0;
-    l1 *= al1;
-    if (__any_sync(0xffffffffu, al0 != 1.f || al1 != 1.f)) {  // a row's max moved
-#pragma unroll
-      for (int o = 0; o < S::NO; ++o) {
-        acc[o][0] *= al0; acc[o][1] *= al0;
-        acc[o][2] *= al1; acc[o][3] *= al1;
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < S::NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = s[nt][e] == NEG_INF ? 0.f : exp2f(s[nt][e] - (e < 2 ? mn0 : mn1));
-        s[nt][e] = p;
-        if (e < 2) l0 += p; else l1 += p;
-      }
-
-    // acc += P · V, P as (hi, lo) bf16 A fragments straight from the scores
-#pragma unroll
-    for (int kk = 0; kk < S::KP; ++kk) {
-      uint32_t ph[4], pl[4];
-      split2(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
-      split2(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
-      split2(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
-      split2(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
-#pragma unroll
-      for (int op = 0; op < S::NO / 2; ++op) {
-        uint32_t vf[4];
-        ldsm_x4_t(vf, smem_u32(sv + (pw0 + kk * 16 + vr) * S::PITCH +
-                               (wc * S::CW + op * 16 + vc) * 2));
-        mma16816(acc[2 * op], ph, vf[0], vf[1]);
-        mma16816(acc[2 * op], pl, vf[0], vf[1]);
-        mma16816(acc[2 * op + 1], ph, vf[2], vf[3]);
-        mma16816(acc[2 * op + 1], pl, vf[2], vf[3]);
-      }
+    // the window is done: its half of the table takes the window after
+    // next, whose first tile the ring issues a window from now
+    if (i0 + 2 * WE < n) {
+      __syncthreads();
+      fill(i0 + 2 * WE, stile[(i0 + 2 * WE - 1) % (2 * WE)] + 1, 0);
     }
   }
   cp_wait<0>();
   __syncthreads();  // the ring is free: it becomes the merge area
+  DA_MARK(3);
 
   // Merge.  The position groups of every split of this (sequence, KV
   // head) hold (m, l, acc) for the 16 rows; the splits form one thread
@@ -593,6 +644,7 @@ decode_mma_kernel(Args a) {
       }
     }
   }
+  DA_MARK(4);
 }
 
 // ---------------------------------------------------------------------------
@@ -835,11 +887,11 @@ template <int HD, bool LO>
 cudaError_t launch_mma(const Args& a, cudaStream_t s) {
   using S = Tile<HD>;
   if (a.splits > MAX_SPLITS) return cudaErrorInvalidValue;
-  const int tiles = (a.T + TP - 1) / TP;
-  const int share = (tiles + a.splits - 1) / a.splits;
-  const int64_t dyn = NS * S::STAGE + (LO ? 2 : 1) * S::QBYTES + 12 * (int64_t)share +
-                      4 * ((tiles + 31) / 32);
-  // refused when the share's tile list does not fit beside the ring
+  const int64_t tiles = ((int64_t)a.T + TP - 1) / TP;
+  const int64_t dyn =
+      NS * S::STAGE + (LO ? 2 : 1) * S::QBYTES + 2 * WE * 12 + 4 * ((tiles + 31) / 32);
+  // refused when the tile bits (4 bytes per 2048 positions) do not fit
+  // beside the ring: past 6.1 M positions at hd 256 with an fp32 q
   const cudaError_t err = allow_smem(decode_mma_kernel<HD, LO>, (int)dyn);
   if (err != cudaSuccess) return err;
   // the splits of one (sequence, KV head) form a cluster
@@ -932,7 +984,7 @@ __global__ void append_kernel(const Ti* __restrict__ k_src, const Ti* __restrict
 // l_out (B, H).  fp32 K/V also take scratch acc (B, K, splits, G, hd), m
 // and l (B, K, splits, G), which may be the outputs themselves when
 // splits == 1 (then no merge runs); bf16 K/V take none (null is fine),
-// at most 8 splits, and a shared-memory tile list that fits the block.
+// at most 8 splits, and T at most 6.1 M (hd 256 with fp32 q; more below).
 // hd is 16, 32, 64, 128, 160 or 256 and G = H / K at most 16.  Returns
 // cudaGetLastError().
 extern "C" int repro_decode_attention_partial(

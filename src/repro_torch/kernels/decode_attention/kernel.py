@@ -20,6 +20,9 @@ TILE = 64
 #: blocks per (sequence, KV head): the bf16 body merges them as one
 #: thread-block cluster, whose portable size is 8
 MAX_SPLITS = 8
+#: positions the bf16 body takes: its bit per tile must fit in shared
+#: memory beside the K/V ring (at hd 256 with an fp32 q, 6.1 M would)
+MAX_POSITIONS = 1 << 22
 
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _ARGS = {
@@ -47,9 +50,21 @@ def splits_for(batch: int, kv_heads: int, positions: int) -> int:
     blocks than the card holds at once in clusters leave a second wave,
     and fewer longer blocks spend less on the prologue and the merge.  At
     the serving shape (16 x 2, 4096 positions) that is 3, the fastest
-    count of the sweep in ``chip_smoke.py`` phase 5."""
+    count of the sweep in ``tools/decode_attention_probe.py``."""
     want = (3 * _SMS // 4) // max(batch * kv_heads, 1)
     return max(1, min(want, MAX_SPLITS, math.ceil(positions / (2 * TILE))))
+
+
+def f32_splits_for(batch: int, kv_heads: int, positions: int) -> int:
+    """Pieces of T per (sequence, KV head) for the fp32 body, which merges
+    them in a second kernel: about four blocks per SM, and no piece
+    shorter than 128 positions (four of its tiles)."""
+    want = math.ceil(4 * _SMS / max(batch * kv_heads, 1))
+    return max(1, min(want, math.ceil(positions / 128)))
+
+
+def _splits(k, B: int, K: int, T: int) -> int:
+    return (f32_splits_for if k.dtype == torch.float32 else splits_for)(B, K, T)
 
 
 def _check_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -74,6 +89,9 @@ def _check_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             k.data_ptr() % 16 or v.data_ptr() % 16):
         raise ValueError("k and v rows must be 16-byte aligned")
     common.dtype_code(k.dtype)
+    if k.dtype == torch.bfloat16 and k.shape[1] > MAX_POSITIONS:
+        raise ValueError(f"{k.shape[1]} positions; the bf16 kernel takes at "
+                         f"most {MAX_POSITIONS}")
 
 
 def _scratch(k, B: int, K: int, splits: int, G: int, hd: int, device):
@@ -96,11 +114,10 @@ def _q(q, device):
     return q if q.data_ptr() % 16 == 0 else q.clone()
 
 
-def attend_partial(q, k, v, valid, device: torch.device, splits=None):
+def attend_partial(q, k, v, valid, device: torch.device):
     """Partial form on ``device``'s current stream: ``q`` (B,H,hd, fp32 or
     bf16, taken as it is) and ``valid`` (B,T) on the card, ``k``/``v``
-    (B,T,K,hd) in HBM or pinned host memory.  ``splits`` overrides
-    :func:`splits_for` (a measurement knob).  Returns fp32 (acc (B,H,hd),
+    (B,T,K,hd) in HBM or pinned host memory.  Returns fp32 (acc (B,H,hd),
     m (B,H), l (B,H))."""
     _check_kv(q, k, v)
     B, H, hd = q.shape
@@ -112,7 +129,7 @@ def attend_partial(q, k, v, valid, device: torch.device, splits=None):
     valid = valid.to(device=device, dtype=torch.bool)
     if valid.stride(1) != 1:
         valid = valid.contiguous()
-    splits = splits or splits_for(B, K, T)
+    splits = _splits(k, B, K, T)
     f32 = dict(dtype=torch.float32, device=device)
     out = (torch.empty((B, H, hd), **f32), torch.empty((B, H), **f32),
            torch.empty((B, H), **f32))
@@ -129,8 +146,7 @@ def attend_partial(q, k, v, valid, device: torch.device, splits=None):
     return out
 
 
-def decode_attention(q, k, v, lengths, device: torch.device,
-                     splits=None) -> torch.Tensor:
+def decode_attention(q, k, v, lengths, device: torch.device) -> torch.Tensor:
     """Normalised form on ``device``'s current stream; (B,H,hd) fp32."""
     _check_kv(q, k, v)
     B, H, hd = q.shape
@@ -140,7 +156,7 @@ def decode_attention(q, k, v, lengths, device: torch.device,
         raise ValueError(f"lengths {tuple(lengths.shape)} != {(B,)}")
     q = _q(q, device)
     lengths = lengths.to(device=device, dtype=torch.int32).contiguous()
-    splits = splits or splits_for(B, K, T)
+    splits = _splits(k, B, K, T)
     out = torch.empty((B, H, hd), dtype=torch.float32, device=device)
     err = _fn("repro_decode_attention")(
         q.data_ptr(), common.dtype_code(q.dtype), k.data_ptr(), v.data_ptr(),

@@ -201,6 +201,35 @@ def test_splits_fit_one_cluster_and_keep_two_tiles_a_block():
         assert s == 1 or T // s >= 2 * t_kernel.TILE
 
 
+def test_fp32_body_keeps_four_blocks_per_sm():
+    """The fp32 CUDA-core body merges its splits in a second kernel, so it
+    keeps its own rule (about four blocks per SM, pieces of at least 128
+    positions), apart from the bf16 body's cluster rule."""
+    assert t_kernel.f32_splits_for(16, 2, 4096) == 17
+    assert t_kernel.f32_splits_for(2, 2, 64) == 1
+    k32 = torch.zeros(16, 4096, 2, 128)
+    assert t_kernel._splits(k32, 16, 2, 4096) == 17
+    assert t_kernel._splits(k32.bfloat16(), 16, 2, 4096) == 3
+
+
+def test_kernel_checks_positions_against_the_tile_bits():
+    """The bf16 body keeps one bit per 64-position tile in shared memory,
+    so it takes at most ``MAX_POSITIONS``; the fp32 body has no limit."""
+    q = torch.randn(1, 16, 256).bfloat16()
+    for T, ok in ((t_kernel.MAX_POSITIONS, True),
+                  (t_kernel.MAX_POSITIONS + 1, False)):
+        k = torch.zeros(1, 1, 1, 256, dtype=torch.bfloat16).expand(1, T, 1,
+                                                                   256)
+        if ok:
+            t_kernel._check_kv(q, k, k)
+        else:
+            with pytest.raises(ValueError, match="positions"):
+                t_kernel._check_kv(q, k, k)
+    k = torch.zeros(1, 1, 1, 256).expand(1, t_kernel.MAX_POSITIONS + 1, 1,
+                                         256)
+    t_kernel._check_kv(q.float(), k, k)
+
+
 def test_kernel_takes_q_in_its_own_dtype():
     """q in fp32 or bf16 goes to the kernel as it is (no cast launch);
     other dtypes are refused before launch."""
@@ -370,7 +399,7 @@ def test_decode_attention_kernel_head_dim_256(cuda, dtype, memory):
 @pytest.mark.parametrize("hd", [128, 256])
 def test_fp32_q_over_bf16_kv_keeps_fp32_accuracy(cuda, hd):
     """An fp32 q that bf16 cannot hold, over bf16 K/V: the kernel splits q
-    (and P) into bf16 high and low halves, so it lands within 1e-4 of the
+    and P into bf16 high and low halves, so it lands within 2e-5 of the
     fp32 plain version, where the same q rounded to bf16 does not."""
     g = torch.Generator().manual_seed(3)
     B, H, K, T = 4, 16, 1 if hd == 256 else 2, 700
@@ -383,8 +412,37 @@ def test_fp32_q_over_bf16_kv_keeps_fp32_accuracy(cuda, hd):
                                 lengths.to(cuda)).cpu()
     want = t_ref.decode_attention(q, k, v, lengths)
     rounded = t_ref.decode_attention(q.bfloat16(), k, v, lengths)
-    assert float((got - want).abs().max()) <= 1e-4
-    assert float((rounded - want).abs().max()) > 1e-4
+    assert float((got - want).abs().max()) <= 2e-5
+    assert float((rounded - want).abs().max()) > 2e-5
+
+
+@pytest.mark.cuda
+def test_bf16_body_takes_long_rows(cuda):
+    """hd 256 with an fp32 q (the body's largest shared memory) and one
+    split a row: 100,000 positions, past where a per-tile list would no
+    longer fit beside the ring, with every fifth tile wholly masked.  K/V
+    are shared by every sequence (stride 0), so a few rows are held
+    against the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    B, H, K, hd, T = 50, 16, 1, 256, 100_000
+    assert t_kernel.splits_for(B, K, T) == 1
+    q = torch.randn((B, H, hd), generator=g, device=cuda)
+    k1, v1 = (torch.randn((1, T, K, hd), generator=g, device=cuda).to(
+        torch.bfloat16) for _ in range(2))
+    k, v = k1.expand(B, T, K, hd), v1.expand(B, T, K, hd)
+    lengths = torch.randint(1, T + 1, (B,), generator=g, device=cuda)
+    lengths[0] = T
+    valid = torch.rand((B, T), generator=g, device=cuda) < 0.6
+    valid &= torch.arange(T, device=cuda) // t_kernel.TILE % 5 != 2
+    got = t_da.decode_attention(q, k, v, lengths)
+    acc, m, l = t_da.attend_partial(q, k, v, valid)
+    for b in (0, 1, B - 1):
+        want = t_ref.decode_attention(q[b:b + 1], k1, v1, lengths[b:b + 1])
+        torch.testing.assert_close(got[b:b + 1], want, atol=2e-5, rtol=2e-4)
+        ra, rm, rl = t_ref.attend_partial(q[b:b + 1], k1, v1, valid[b:b + 1])
+        torch.testing.assert_close(acc[b:b + 1], ra, atol=2e-2, rtol=0.2)
+        torch.testing.assert_close(m[b:b + 1], rm, atol=2e-2, rtol=2e-2)
+        torch.testing.assert_close(l[b:b + 1], rl, atol=2e-2, rtol=0.2)
 
 
 @pytest.mark.cuda

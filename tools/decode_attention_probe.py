@@ -1,28 +1,24 @@
 #!/usr/bin/env python3
-"""Where the bf16 ``decode_attention`` kernel spends its time, on one card.
+"""Measurements behind the design of the bf16 ``decode_attention`` body.
 
     python3 tools/decode_attention_probe.py
 
-Builds variants of ``src/repro_torch/csrc/decode_attention.cu`` by text
-substitution into ``build/probe/`` (one ``nvcc`` each, in parallel) and
-times each through the port's own wrapper at the starcoder2-3b serving
-shape (16 x 4096 bf16, 3072 valid, 24/2 heads of 128), partial form,
-over every split count:
+Needs a CUDA card and ``nvcc``; prints the card's name and power limit
+first.  Not part of the port: it calls the kernel's C entry points itself
+and builds two variants of ``src/repro_torch/csrc/decode_attention.cu``
+through the hooks the source defines for it (into ``build/probe/``, in
+parallel):
 
-* ``base``: the kernel as it is;
-* ``no_compute``: the K/V ring runs, the tile's math is skipped;
-* ``no_loads``: the math runs on whatever the ring holds, no copy is
-  issued;
-* ``fixed_only``: neither (launch, prologue, merges);
-* ``l1_always`` / ``l2_always``: K/V copies through L1 (``.ca``) or
-  around it (``.cg``) whatever the memory, against the kernel's choice
-  (``.cg`` from HBM, ``.ca`` from pinned host memory);
-* ``clocks``: the base with ``clock64`` marks on block (0, 0) and the
-  grid's first and last ``%globaltimer``, printed per phase.
+* ``p_hi_only`` (``-DDA_P_LO=0``): P·V without P's low bf16 half.  With
+  an fp32 q over bf16 K/V, the normalised error of the kernel, of this
+  variant and of q rounded to bf16 (plain version) at the shapes of
+  ``chip_smoke.py`` phase 5 show what each half of the split buys.
+* ``clocks`` (``DA_MARK``): ``clock64`` at each phase of block (0, 0) and
+  the grid's first and last ``%globaltimer``, per split count.
 
-Timed variants also read the partition from pinned host memory at the
-split rule's count.  Needs a CUDA card and ``nvcc``; prints the card's
-name and power limit first.  Not part of the port: a measurement tool.
+Then the partial form's time at the starcoder2-3b serving shape (16 x
+4096 bf16, 3072 valid, 24/2 heads of 128) for every split count from 1
+to 8, the sweep behind ``kernel.splits_for``.
 """
 from __future__ import annotations
 
@@ -36,97 +32,93 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
 OUT = ROOT / "build" / "probe"
-SCORES = "    // scores: (16 heads) x (PW positions) = Q · Kᵀ"
-RING_NEXT = "    if (i + NS - 1 < n) issue(i + NS - 1, (i + NS - 1) % NS);\n"
-RING_FIRST = "    if (i < n) issue(i, i);\n"
-NO_COMPUTE = [(SCORES, "    continue;\n" + SCORES)]
-NO_LOADS = [(RING_NEXT, ""), (RING_FIRST, "")]
-VARIANTS = {
-    "base": [],
-    "no_compute": NO_COMPUTE,
-    "no_loads": NO_LOADS,
-    "fixed_only": NO_COMPUTE + NO_LOADS,
-    "l1_always": [("  if (host)\n    asm volatile(\"cp.async.ca",
-                   "  if (true)\n    asm volatile(\"cp.async.ca")],
-    "l2_always": [("  if (host)\n    asm volatile(\"cp.async.ca",
-                   "  if (false)\n    asm volatile(\"cp.async.ca")],
+#: the phases between DA_MARK(k) and DA_MARK(k + 1) in the bf16 body
+PHASES = ("q_issue", "share_and_first_stages", "tile_loop", "merge")
+CLOCKS_H = r'''
+#include <cuda_runtime.h>
+__device__ long long da_clk[5];
+__device__ unsigned long long da_ns[4];
+__device__ __forceinline__ void da_mark(int k) {
+  if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0) da_clk[k] = clock64();
+  if (k == 0 || k == 4) {  // the grid's first and last start, first and last end
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    if (threadIdx.x == 0) { atomicMin(&da_ns[k / 2], t); atomicMax(&da_ns[k / 2 + 1], t); }
+  }
 }
-
-
-def _mark(k: int) -> str:
-    return ("if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0) "
-            f"probe_clk[{k}] = clock64();\n")
-
-
-def _timer(lo: int) -> str:
-    return ("  { unsigned long long t; asm volatile(\"mov.u64 %0, %%globaltimer;\" "
-            ": \"=l\"(t)); if (threadIdx.x == 0) { atomicMin(&probe_ns["
-            f"{lo}], t); atomicMax(&probe_ns[{lo + 1}], t); }}}}\n")
-
-
-#: (anchor, phase name ending there): clock marks of the ``clocks`` variant
-PHASES = [
-    ("  const int G = a.G;\n", None),
-    ("  // this block's share of the tiles that hold a valid position\n", "q_issue"),
-    ("  __syncthreads();  // the list is in place\n", "mask_scan_and_list"),
-    ("  __syncthreads();  // the validity words are in place\n", "validity_words"),
-    ("  cp_wait<0>();\n  __syncthreads();  // the ring is free", "tile_loop"),
-    ("  cg::cluster_group cluster = cg::this_cluster();\n", "block_rows"),
-    ("  for (int i = tid; i < G * HD; i += MTHREADS) {  // push", "cluster_rows"),
-    ("  cluster.sync();  // every share has landed", "push_shares"),
-    ("  const int64_t o0 = (int64_t)bk * G;\n", "cluster_sync"),
-]
-#: the end of the bf16 body: the last mark and the grid's end time go here
-END = "        a.l_out[o0 + r] = rl[r];\n      }\n    }\n  }\n}"
-
-
-def clocks_source(src: str) -> str:
-    for k, (anchor, _) in enumerate(PHASES):
-        assert anchor in src, anchor
-        after = k in (0, 2, 3)  # the mark goes after these anchors, else before
-        mark = _mark(k) + (_timer(0) if k == 0 else "")
-        src = src.replace(anchor, anchor + mark if after else mark + anchor, 1)
-    assert END in src
-    src = src.replace(END, END[:-1] + _mark(len(PHASES)) + _timer(2) + "}")  # owner_sums
-    src = src.replace("namespace {\n", "__device__ long long probe_clk[16];\n"
-                      "__device__ unsigned long long probe_ns[4];\nnamespace {\n", 1)
-    return src + '''
+#define DA_MARK(k) da_mark(k)
 extern "C" int probe_read(long long* clk, unsigned long long* ns) {
-  cudaMemcpyFromSymbol(clk, probe_clk, sizeof(probe_clk));
-  return (int)cudaMemcpyFromSymbol(ns, probe_ns, sizeof(probe_ns));
+  cudaMemcpyFromSymbol(clk, da_clk, sizeof(da_clk));
+  return (int)cudaMemcpyFromSymbol(ns, da_ns, sizeof(da_ns));
 }
 extern "C" int probe_reset() {
   const unsigned long long ns[4] = {~0ull, 0ull, ~0ull, 0ull};
-  return (int)cudaMemcpyToSymbol(probe_ns, ns, sizeof(ns));
+  return (int)cudaMemcpyToSymbol(da_ns, ns, sizeof(ns));
 }
 '''
 
 
 def build(common) -> dict:
-    src = (common.CSRC / "decode_attention.cu").read_text()
-    sources = {}
-    for name, subs in VARIANTS.items():
-        text = src
-        for old, new in subs:
-            assert old in text, (name, old)
-            text = text.replace(old, new)
-        sources[name] = text
-    sources["clocks"] = clocks_source(src)
+    """The base library (the port's own build) and the two variants."""
     OUT.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, text in sources.items():
-        (OUT / f"{name}.cu").write_text(text)
-        procs[name] = subprocess.Popen(
-            [common.nvcc_path(), *common.NVCC_FLAGS, "-o", str(OUT / f"lib{name}.so"),
-             str(OUT / f"{name}.cu")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
-    libs = {}
+    (OUT / "clocks.h").write_text(CLOCKS_H)
+    flags = {"p_hi_only": ["-DDA_P_LO=0"],
+             "clocks": ["-include", str(OUT / "clocks.h")]}
+    procs = {name: subprocess.Popen(
+        [common.nvcc_path(), *common.NVCC_FLAGS, *extra, "-o",
+         str(OUT / f"lib{name}.so"), str(common.CSRC / "decode_attention.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, extra in flags.items()}
+    libs = {"base": common.load("decode_attention")}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"variant {name} did not build:\n{log[-4000:]}")
         libs[name] = ctypes.CDLL(str(OUT / f"lib{name}.so"))
     return libs
+
+
+def entry(lib, name: str):
+    from repro_torch.kernels.decode_attention import kernel
+    fn = getattr(lib, name)
+    fn.argtypes = kernel._ARGS[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def partial(lib, q, k, v, valid, splits: int):
+    """The partial form over bf16 K/V in HBM at ``splits`` blocks."""
+    import torch
+    from repro_torch.kernels import common
+    B, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    f32 = dict(dtype=torch.float32, device=q.device)
+    out = (torch.empty((B, H, hd), **f32), torch.empty((B, H), **f32),
+           torch.empty((B, H), **f32))
+    err = entry(lib, "repro_decode_attention_partial")(
+        q.data_ptr(), common.dtype_code(q.dtype), k.data_ptr(), v.data_ptr(),
+        1, 0, k.stride(0), k.stride(1), k.stride(2), valid.data_ptr(),
+        valid.stride(0), B, T, K, H // K, hd, splits, None, None, None,
+        *(o.data_ptr() for o in out), common.stream_handle(q.device))
+    common.check(err, "probe partial launch")
+    return out
+
+
+def normalised(lib, q, k, v, lengths):
+    """The normalised form over bf16 K/V in HBM at the split rule's count."""
+    import torch
+    from repro_torch.kernels import common
+    from repro_torch.kernels.decode_attention import kernel
+    B, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    out = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
+    err = entry(lib, "repro_decode_attention")(
+        q.data_ptr(), common.dtype_code(q.dtype), k.data_ptr(), v.data_ptr(),
+        1, 0, k.stride(0), k.stride(1), k.stride(2), lengths.data_ptr(), B, T,
+        K, H // K, hd, kernel.splits_for(B, K, T), None, None, None,
+        out.data_ptr(), common.stream_handle(q.device))
+    common.check(err, "probe normalised launch")
+    return out
 
 
 def main() -> int:
@@ -136,7 +128,7 @@ def main() -> int:
         return 1
     import chip_smoke as cs
     from repro_torch.kernels import common
-    from repro_torch.kernels.decode_attention import kernel
+    from repro_torch.kernels.decode_attention import kernel, ref
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -144,64 +136,57 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0], flush=True)
     libs = build(common)
     dev = torch.device("cuda")
-    B, H, K, hd, T = cs.SERVE_B, cs.SERVE_H, cs.SERVE_K, cs.SERVE_HD, cs.SERVE_T
     g = torch.Generator(device="cpu").manual_seed(7)
+
+    # fp32 q over bf16 K/V: what q's and P's low halves each buy
+    for B, H, K, hd, T in ((cs.SERVE_B, cs.SERVE_H, cs.SERVE_K, cs.SERVE_HD,
+                            1024), (2, 16, 1, 256, 512)):
+        for trial in range(3):
+            q = torch.randn((B, H, hd), generator=g).to(dev)
+            k, v = (torch.randn((B, T, K, hd), generator=g).to(
+                dev, torch.bfloat16) for _ in range(2))
+            lengths = torch.randint(1, T + 1, (B,), generator=g).to(
+                dev, torch.int32)
+            want = ref.decode_attention(q, k, v, lengths)
+            errs = {name: float((normalised(libs[name], q, k, v, lengths)
+                                 - want).abs().max())
+                    for name in ("base", "p_hi_only")}
+            rounded = float((ref.decode_attention(q.bfloat16(), k, v, lengths)
+                             - want).abs().max())
+            print(f"accuracy/fp32_q_bf16_kv/B{B}xH{H}xK{K}xhd{hd}xT{T}/"
+                  f"trial{trial},kernel_err={errs['base']:.3g},"
+                  f"p_hi_only_err={errs['p_hi_only']:.3g},"
+                  f"bf16_rounded_q_err={rounded:.3g}", flush=True)
+
+    B, H, K, hd, T = cs.SERVE_B, cs.SERVE_H, cs.SERVE_K, cs.SERVE_HD, cs.SERVE_T
     q = torch.randn((B, H, hd), generator=g).to(dev, torch.bfloat16)
-    k = torch.randn((B, T, K, hd), generator=g).to(dev, torch.bfloat16)
-    v = torch.randn((B, T, K, hd), generator=g).to(dev, torch.bfloat16)
+    k, v = (torch.randn((B, T, K, hd), generator=g).to(dev, torch.bfloat16)
+            for _ in range(2))
     valid = (torch.arange(T, device=dev)[None] < cs.SERVE_VALID).expand(
         B, T).contiguous()
-    kp, vp = k.cpu().pin_memory(), v.cpu().pin_memory()
-    kv_bytes = 2 * B * cs.SERVE_VALID * K * hd * 2
-    rule = kernel.splits_for(B, K, T)
-    wrapped = kernel._fn
+    counts = range(1, kernel.MAX_SPLITS + 1)
+    sweep = [cs.time_ms(lambda s=s: partial(libs["base"], q, k, v, valid, s),
+                        iters=50, queue_ahead=True) for s in counts]
+    print(f"split_sweep/rule={kernel.splits_for(B, K, T)}," + ",".join(
+        f"s{s}_ms={t:.4f}" for s, t in zip(counts, sweep)), flush=True)
 
-    def use(lib):
-        def fn(name):
-            f = getattr(lib, name)
-            f.argtypes = kernel._ARGS[name]
-            f.restype = ctypes.c_int
-            return f
-        kernel._fn = fn
-
-    def timed(splits: int) -> float:
-        return cs.time_ms(lambda: kernel.attend_partial(
-            q, k, v, valid, dev, splits=splits), iters=50, queue_ahead=True)
-
-    try:
-        for name, lib in libs.items():
-            if name == "clocks":
-                continue
-            use(lib)
-            row = [f"s{s}_ms={timed(s):.4f}"
-                   for s in range(1, kernel.MAX_SPLITS + 1)]
-            pin = cs.time_ms(lambda: kernel.attend_partial(q, kp, vp, valid, dev),
-                             iters=5, queue_ahead=True)
-            print(f"variant/{name}," + ",".join(row) +
-                  f",pinned_s{rule}_GBps={kv_bytes / (pin * 1e-3) / 1e9:.2f}",
-                  flush=True)
-        lib = libs["clocks"]
-        use(lib)
-        clk = (ctypes.c_longlong * 16)()
-        ns = (ctypes.c_ulonglong * 4)()
-        for s in range(1, kernel.MAX_SPLITS + 1):
-            for _ in range(3):
-                kernel.attend_partial(q, k, v, valid, dev, splits=s)
-            torch.cuda.synchronize()
-            lib.probe_reset()
-            kernel.attend_partial(q, k, v, valid, dev, splits=s)
-            torch.cuda.synchronize()
-            lib.probe_read(clk, ns)
-            marks = list(clk)[:len(PHASES) + 1]
-            parts = [f"{PHASES[i + 1][1] if i + 1 < len(PHASES) else 'owner_sums'}"
-                     f"={marks[i + 1] - marks[i]}" for i in range(len(PHASES))]
-            print(f"clocks/s{s},block00_cycles," + ",".join(parts) +
-                  f",total={marks[-1] - marks[0]},grid_start_spread_us="
-                  f"{(ns[1] - ns[0]) / 1e3:.2f},grid_end_spread_us="
-                  f"{(ns[3] - ns[2]) / 1e3:.2f},kernel_span_us="
-                  f"{(ns[3] - ns[0]) / 1e3:.2f}", flush=True)
-    finally:
-        kernel._fn = wrapped
+    lib = libs["clocks"]
+    clk = (ctypes.c_longlong * 5)()
+    ns = (ctypes.c_ulonglong * 4)()
+    for s in counts:
+        for _ in range(3):
+            partial(lib, q, k, v, valid, s)
+        torch.cuda.synchronize()
+        lib.probe_reset()
+        partial(lib, q, k, v, valid, s)
+        torch.cuda.synchronize()
+        lib.probe_read(clk, ns)
+        parts = [f"{PHASES[i]}={clk[i + 1] - clk[i]}" for i in range(4)]
+        print(f"clocks/s{s},block00_cycles," + ",".join(parts) +
+              f",total={clk[4] - clk[0]},grid_start_spread_us="
+              f"{(ns[1] - ns[0]) / 1e3:.2f},grid_end_spread_us="
+              f"{(ns[3] - ns[2]) / 1e3:.2f},kernel_span_us="
+              f"{(ns[3] - ns[0]) / 1e3:.2f}", flush=True)
     return 0
 
 
