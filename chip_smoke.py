@@ -12,17 +12,28 @@ wrong result or a missing kernel launch:
    ``src/repro_torch/csrc`` (one ``nvcc`` each, in parallel); fail if
    ``-Xptxas -v`` reports a spill in any of them.
 2. ``embedding_reduce`` against its plain version: fp32 and bf16 tables in
-   HBM and in pinned host memory, duplicate indices, zero weights.
+   HBM and in pinned host memory, int32 and int64 indices, duplicate
+   indices, zero weights, the scalar path, column tiles, bags longer than
+   the staging area; its routed form (one launch per ``bag_reduce``)
+   against the per-shard path of table-form launches, bit for bit: two
+   and three shards (HBM + pinned, one drained), both dtypes, negative and
+   out-of-range rows, given weights or none.
 3. ``stream_copy`` against its plain version: the ragged row sweep on the
    HBM->HBM, pinned->HBM and HBM->pinned routes, with both casts, on
    contiguous slabs and on row-strided 2-D views.
 4. the slice: a 2^25 x 64 fp32 embedding table (8 GiB) paged with
-   ``page_rows=64`` over an HBM shard and a pinned host shard; an
-   actuation audit (0 -> 0.25 -> 0.10 slow, donated, through
-   ``BulkMover(execute=stream_executor())``); then a Caption walk from
-   0% slow on measured bag throughput.  Kernel launch counts are reset
-   right before the walk and read right after it.  ``--sweep`` then
-   measures bags/s at fixed slow fractions (not part of the main path).
+   ``page_rows=64`` over an HBM shard and a pinned host shard; both
+   forms of ``embedding_reduce`` timed against their plain versions,
+   ``embedding_bag`` and their byte bounds; an actuation audit (0 -> 0.25
+   -> 0.10 -> 0 slow, donated, through
+   ``BulkMover(execute=stream_executor())``), with the routed form timed
+   against the per-shard path at each step; membind-fast bags/s, device
+   busy share and host time per ``bag_reduce`` call; then a Caption walk
+   from 0% slow on measured bag throughput.  Kernel launch counts are
+   reset right before the walk and read right after it, and
+   ``embedding_reduce``'s must equal the walk's ``bag_reduce`` calls.
+   ``--sweep`` then measures bags/s at fixed slow fractions (not part of
+   the main path).
 5. ``decode_attention`` against its plain version, both forms, fp32 and
    bf16, K/V in HBM and in pinned host memory, ragged lengths (1 and T),
    a fully masked partition row, stablelm-12b's head dim 160,
@@ -184,7 +195,8 @@ def _pinned(t):
 
 
 def phase_embedding_reduce(stats: dict) -> None:
-    """Kernel == plain version on the card: dtypes x memories x cases."""
+    """Kernel == plain version on the card: dtypes x memories x cases; the
+    routed form == the per-shard kernel path; the pinned row rate."""
     import torch
     from repro_torch.kernels.embedding_reduce import kernel, ops, ref
     from repro_torch.kernels.stream_copy.kernel import pointer_info
@@ -194,10 +206,9 @@ def phase_embedding_reduce(stats: dict) -> None:
     for dtype in (torch.float32, torch.bfloat16):
         for mem in ("hbm", "pinned"):
             for V, D, B, K in ((4096, 64, 256, 80), (300, 24, 17, 5),
-                               (64, 512, 3, 33)):
+                               (64, 512, 3, 33), (1000, 64, 9, 600)):
                 table = torch.randn((V, D), generator=g).to(dtype)
-                idx = torch.randint(0, V, (B, K), generator=g,
-                                    dtype=torch.int32)
+                idx = torch.randint(0, V, (B, K), generator=g)
                 idx[:, 1] = idx[:, 0]  # duplicate lookups
                 w = torch.rand((B, K), generator=g).to(dtype)
                 w[:, ::7] = 0  # rows of zero weight: no load, exact +0
@@ -205,25 +216,27 @@ def phase_embedding_reduce(stats: dict) -> None:
                 if mem == "pinned":
                     kind, dptr = pointer_info(tab)
                     assert kind == 1 and dptr == tab.data_ptr(), (kind, dptr)
-                got = kernel.embedding_reduce(tab, idx.to(dev), w.to(dev), dev)
                 want = ref.embedding_reduce(table.to(dev), idx.to(dev),
                                             w.to(dev))
-                torch.cuda.synchronize()
-                err = float((got.float() - want.float()).abs().max())
-                if dtype == torch.float32:
-                    assert torch.equal(got, want), (mem, V, D, B, K, err)
-                else:
-                    torch.testing.assert_close(got.float(), want.float(),
-                                               **BF16_TOL)
-                worst = max(worst, err)
+                for idt in (torch.int32, torch.int64):  # read as given
+                    got = kernel.embedding_reduce(tab, idx.to(dev, idt),
+                                                  w.to(dev), dev)
+                    torch.cuda.synchronize()
+                    err = float((got.float() - want.float()).abs().max())
+                    if dtype == torch.float32:
+                        assert torch.equal(got, want), (mem, V, D, B, K, err)
+                    else:
+                        torch.testing.assert_close(got.float(), want.float(),
+                                                   **BF16_TOL)
+                    worst = max(worst, err)
                 log(f"phase2/embedding_reduce/{str(dtype)[6:]}/{mem}/"
-                    f"V{V}xD{D}xB{B}xK{K},max_abs_err={err:.3g}")
+                    f"V{V}xD{D}xB{B}xK{K},int32_int64,max_abs_err={err:.3g}")
+    routed_cases(g)
     # random-row read rate of a pinned host table over PCIe (UVA reads)
     V = 1 << 22
     table = torch.randint(-8, 9, (V, DIM), dtype=torch.float32, generator=g)
     tab = _pinned(table)
-    idx = torch.randint(0, V, (BAG, LOOKUPS), generator=g,
-                        dtype=torch.int32).to(dev)
+    idx = torch.randint(0, V, (BAG, LOOKUPS), generator=g).to(dev)
     w = torch.ones((BAG, LOOKUPS), device=dev)
     ms = time_ms(lambda: ops.embedding_reduce(tab, idx, w), iters=10,
                  queue_ahead=True)
@@ -233,6 +246,52 @@ def phase_embedding_reduce(stats: dict) -> None:
     stats["pinned_row_GBps"] = rate / 1e9
     stats["embedding_reduce_err"] = worst
     ops.LAUNCHES.reset()
+
+
+def routed_cases(g) -> None:
+    """The routed form (one launch per ``bag_reduce``) against the
+    per-shard path of table-form launches, bit for bit: two and three
+    shards (HBM + pinned), a drained shard, both dtypes, the vector and
+    the scalar path, int32 and int64 indices with negative and
+    out-of-range rows, given weights or none."""
+    import torch
+    from repro_torch.core import InterleavedTensor, MemPolicy
+    from repro_torch.core.telemetry import Telemetry
+    from repro_torch.kernels.embedding_reduce import ops
+    dev = torch.device("cuda")
+    three = ("fast", "cxl-a", "cxl-b")
+    cases = ((("fast", "slow"), (3, 1), None, 64), (three, (4, 2, 2), None, 64),
+             (three, (4, 2, 2), "cxl-a", 64), (three, (2, 1, 1), None, 24))
+    for dtype in (torch.float32, torch.bfloat16):
+        for names, weights, drained, D in cases:
+            rows, page_rows = 64 * 257, 64
+            table = torch.randn((rows, D), generator=g).to(dtype)
+            it = InterleavedTensor.from_array(
+                table, MemPolicy.weighted(names, weights), page_rows,
+                headroom=64, device=dev)
+            if drained:
+                it = it.drain_device(drained, telemetry=Telemetry(),
+                                     donate=True)
+            assert all(p.is_pinned() for p in it.parts[1:])
+            idx = torch.randint(-3 * page_rows, rows + 3 * page_rows,
+                                (256, 80), generator=g)
+            idx[:, 1] = idx[:, 0]
+            w = torch.rand((256, 80), generator=g)
+            w[:, ::7] = 0
+            for wts in (w.to(dev, dtype), None):
+                for idt in (torch.int32, torch.int64):
+                    ix = idx.to(dev, idt)
+                    before = ops.LAUNCHES.count
+                    got = it.bag_reduce(ix, wts)
+                    assert ops.LAUNCHES.count == before + 1
+                    want = it.bag_reduce(ix, wts,
+                                         reduce_fn=ops.embedding_reduce)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, want), (names, drained, dtype)
+            log(f"phase2/bag_reduce_routed/{str(dtype)[6:]}/"
+                f"shards{len(it.parts)}{'_drained' if drained else ''}/D{D},"
+                f"slow_pages={it.valid_page_counts()[1:]},"
+                f"equal_to_per_shard_kernels=1,launches_per_call=1")
 
 
 def phase_stream_copy(stats: dict) -> None:
@@ -347,19 +406,96 @@ def phase_stream_copy(stats: dict) -> None:
     ops.LAUNCHES.reset()
 
 
+#: ``InterleavedTensor.bag_reduce`` calls made through ``bags``
+BAG_CALLS = 0
+
+
+def bags(it, batches) -> list:
+    """One ``it.bag_reduce`` per batch, counted in ``BAG_CALLS``."""
+    global BAG_CALLS
+    BAG_CALLS += len(batches)
+    return [it.bag_reduce(b) for b in batches]
+
+
 def epoch_rate(it, batches) -> float:
     """Bags/s of one epoch of ``it.bag_reduce``: three windows of 32
     batches, and their median, so one window stalled by the shared host
     does not steer the walk."""
     rates = []
     for _ in range(3):
-        ms = time_ms(lambda: [it.bag_reduce(b) for b in batches], iters=8,
-                     warmup=1)
+        ms = time_ms(lambda: bags(it, batches), iters=8, warmup=1)
         rates.append(BAG * len(batches) / (ms * 1e-3))
     return sorted(rates)[1]
 
 
+def host_cost(it, batches, reps: int = 8) -> dict:
+    """Host time per ``bag_reduce`` call: the enqueue time while the card
+    sleeps (uninstrumented), and the call's cumulative time under
+    cProfile over ``reps`` epochs with the functions of most own time;
+    and the device kernels one call runs."""
+    import cProfile
+    import pstats
+    import torch
+    bags(it, batches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bags(it, batches)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2 * (time.perf_counter() - t0) * 2e9))
+    t0 = time.perf_counter()
+    bags(it, batches)
+    host_us = (time.perf_counter() - t0) / len(batches) * 1e6
+    torch.cuda.synchronize()
+    pr = cProfile.Profile()
+    pr.enable()
+    for _ in range(reps):
+        bags(it, batches)
+    pr.disable()
+    torch.cuda.synchronize()
+    stats = pstats.Stats(pr).stats
+    calls = reps * len(batches)
+    cprof_us = next(ct / nc * 1e6 for (fname, _, func), (_, nc, _, ct, _)
+                    in stats.items() if func == "bag_reduce"
+                    and fname.endswith("interleave.py"))
+    top = sorted(((func, tt / calls * 1e6) for (_, _, func), (_, _, tt, _, _)
+                  in stats.items()), key=lambda x: -x[1])[:8]
+    return {"host_us": host_us, "cprofile_us": cprof_us, "top": top,
+            "kernels": kernels_per_call(lambda: it.bag_reduce(batches[0]))}
+
+
+def routed_vs_per_shard(it, idx, label: str) -> dict:
+    """The routed launch against the per-shard path (one table-form launch
+    per shard and the eager routing around them) on one batch: equal bits,
+    device times with the card queued ahead, and the routed form's bound:
+    HBM rows, indices and page maps over HBM's rate against the pinned
+    rows over PCIe's, whichever is longer."""
+    import torch
+    from repro_torch.kernels.embedding_reduce import ops as er_ops
+
+    def routed():
+        return it.bag_reduce(idx)
+
+    def per_shard():
+        return it.bag_reduce(idx, reduce_fn=er_ops.embedding_reduce)
+
+    assert torch.equal(routed(), per_shard()), label
+    r_ms = time_ms(routed, queue_ahead=True)
+    s_ms = time_ms(per_shard, queue_ahead=True)
+    dev, _ = it._route(idx)
+    n = idx.numel()
+    n_slow = int((dev >= 1).sum())
+    hbm = (n - n_slow) * DIM * 4 + n * (8 + 1 + 8) + idx.shape[0] * DIM * 4
+    pcie = n_slow * DIM * 4
+    bound = max(hbm / HBM_BW, pcie / PCIE_BW) * 1e3
+    log(f"phase4/{label}/routed_vs_per_shard,slow_lookups={n_slow},"
+        f"routed_ms={r_ms:.4f},per_shard_ms={s_ms:.4f},"
+        f"bound_ms={bound:.4f},hbm_bytes={hbm},pcie_bytes={pcie},"
+        f"bit_equal=1")
+    return {"routed_ms": r_ms, "per_shard_ms": s_ms, "bound_ms": bound}
+
+
 def phase_slice(stats: dict, rows_log2: int, sweep: bool) -> dict:
+    global BAG_CALLS
     import torch
     from repro_torch.core import (BulkMover, CaptionConfig, CaptionController,
                                   EpochMetrics, InterleavedTensor, MemPolicy,
@@ -409,23 +545,27 @@ def phase_slice(stats: dict, rows_log2: int, sweep: bool) -> dict:
     ones = torch.ones((BAG, LOOKUPS), device=dev)
     want = [it.bag_reduce(b) for b in batches]
 
-    # kernel vs plain vs library at the slice's shapes (fast shard, f=0:
-    # local row == logical row)
+    # both forms vs plain vs library at the slice's shapes (fast shard,
+    # f=0: local row == logical row)
     fast_part = it.parts[0]
-    idx0 = batches[0].to(torch.int32)  # the kernel's index width
+    idx64 = batches[0]  # the main path's indices: int64, read as given
+    idx0 = idx64.to(torch.int32)
     got = er_ops.embedding_reduce(fast_part, idx0, ones)
     plain = er_ref.embedding_reduce(fast_part, idx0, ones)
-    lib = torch.nn.functional.embedding_bag(idx0, fast_part, mode="sum",
+    lib = torch.nn.functional.embedding_bag(idx64, fast_part, mode="sum",
                                             per_sample_weights=ones)
     torch.cuda.synchronize()
     assert torch.equal(got, plain) and torch.equal(want[0], plain)
+    assert torch.equal(er_ops.embedding_reduce(fast_part, idx64, ones), plain)
     er_err = float((got - plain).abs().max())
     k_ms = time_ms(lambda: er_ops.embedding_reduce(fast_part, idx0, ones),
                    queue_ahead=True)
+    k64_ms = time_ms(lambda: er_ops.embedding_reduce(fast_part, idx64, ones),
+                     queue_ahead=True)
     p_ms = time_ms(lambda: er_ref.embedding_reduce(fast_part, idx0, ones),
                    iters=5, queue_ahead=True)
     l_ms = time_ms(lambda: torch.nn.functional.embedding_bag(
-        idx0, fast_part, mode="sum", per_sample_weights=ones),
+        idx64, fast_part, mode="sum", per_sample_weights=ones),
         queue_ahead=True)
     k_host_ms = time_ms(lambda: er_ops.embedding_reduce(fast_part, idx0,
                                                         ones))
@@ -433,16 +573,36 @@ def phase_slice(stats: dict, rows_log2: int, sweep: bool) -> dict:
     nbytes = (BAG * LOOKUPS * (DIM * 4 + 4 + 4) + BAG * DIM * 4)
     flops = 2 * BAG * LOOKUPS * DIM
     er_bound = max(nbytes / HBM_BW, flops / FP32_FLOPS) * 1e3
-    log(f"phase4/embedding_reduce/hbm,ms={k_ms:.4f},plain_ms={p_ms:.4f},"
-        f"library_ms={l_ms:.4f},bound_ms={er_bound:.4f},bytes={nbytes},"
+    log(f"phase4/embedding_reduce/hbm,ms={k_ms:.4f},ms_int64={k64_ms:.4f},"
+        f"plain_ms={p_ms:.4f},library_ms={l_ms:.4f},bound_ms={er_bound:.4f},"
+        f"bytes={nbytes},bound_share={er_bound / k_ms:.3f},"
         f"ms_with_host_gaps={k_host_ms:.4f},"
         f"library_max_abs_err={float((lib - plain).abs().max()):.3g},"
         f"rows_GBps={BAG * LOOKUPS * DIM * 4 / (k_ms * 1e-3) / 1e9:.2f}")
+    # the routed form as the main path calls it: int64 global rows, no
+    # weights; the plain routed version over the fast shard alone (at f=0
+    # it owns every page)
+    pd, pl = it.page_device, it.page_local
+    r_plain = er_ref.bag_reduce_routed((fast_part,), pd, pl, PAGE_ROWS, idx64)
+    assert torch.equal(it.bag_reduce(idx64), r_plain)
+    r_ms = time_ms(lambda: it.bag_reduce(idx64), queue_ahead=True)
+    rp_ms = time_ms(lambda: er_ref.bag_reduce_routed(
+        (fast_part,), pd, pl, PAGE_ROWS, idx64), iters=5, queue_ahead=True)
+    rl_ms = time_ms(lambda: torch.nn.functional.embedding_bag(
+        idx64, fast_part, mode="sum"), queue_ahead=True)
+    # rows, int64 indices, one int8 and one int64 map entry per lookup
+    # read once; the output written
+    r_bytes = BAG * LOOKUPS * (DIM * 4 + 8 + 1 + 8) + BAG * DIM * 4
+    r_bound = max(r_bytes / HBM_BW, flops / FP32_FLOPS) * 1e3
+    log(f"phase4/bag_reduce_routed/f0.00,ms={r_ms:.4f},plain_ms={rp_ms:.4f},"
+        f"library_ms={rl_ms:.4f},bound_ms={r_bound:.4f},bytes={r_bytes},"
+        f"bound_share={r_bound / r_ms:.3f},max_abs_err=0")
 
     # actuation audit (fig11_caption.py:262-299 on the card)
     page_bytes = PAGE_ROWS * it.row_bytes
     ptrs = [p.data_ptr() for p in it.parts]
     tel = Telemetry()
+    forms = {}
     FULL_SHARD_COPIES.reset()
     with BulkMover(topo, batch_size=16, telemetry=tel,
                    execute=stream_executor(), device=dev) as mover:
@@ -462,6 +622,7 @@ def phase_slice(stats: dict, rows_log2: int, sweep: bool) -> dict:
             assert descs < delta, (descs, delta)
             for b, w in zip(batches, want):
                 assert torch.equal(it.bag_reduce(b), w), f
+            forms[f] = routed_vs_per_shard(it, batches[0], f"audit/f{f:.2f}")
             assert [p.data_ptr() for p in it.parts] == ptrs
             assert FULL_SHARD_COPIES.count == 0
             log(f"phase4/audit/f{f:.2f},delta_pages={delta},billed={billed},"
@@ -471,8 +632,15 @@ def phase_slice(stats: dict, rows_log2: int, sweep: bool) -> dict:
 
         # membind-fast reference and the measured Caption walk
         membind = epoch_rate(it, batches)
-        log(f"phase4/membind_fast,bags_per_s={membind:.0f}")
+        busy = device_busy_share(lambda: bags(it, batches))
+        host = host_cost(it, batches)
+        log(f"phase4/membind_fast,bags_per_s={membind:.0f},"
+            f"device_busy_share={busy},"
+            f"host_us_per_bag_reduce={host['host_us']:.1f},"
+            f"cprofile_us_per_bag_reduce={host['cprofile_us']:.1f},"
+            f"kernels_per_bag_reduce={host['kernels']}")
         ctl = CaptionController(topo, cfg, initial_fraction=0.0)
+        BAG_CALLS = 0
         er_ops.LAUNCHES.reset()
         sc_ops.LAUNCHES.reset()
         trajectory = []
@@ -494,6 +662,8 @@ def phase_slice(stats: dict, rows_log2: int, sweep: bool) -> dict:
                 break
         launches = {"embedding_reduce": er_ops.LAUNCHES.count,
                     "stream_copy": sc_ops.LAUNCHES.count}
+        calls = BAG_CALLS
+    assert launches["embedding_reduce"] == calls, (launches, calls)
     for b, w in zip(batches, want):
         assert torch.equal(it.bag_reduce(b), w)
     assert [p.data_ptr() for p in it.parts] == ptrs
@@ -501,7 +671,7 @@ def phase_slice(stats: dict, rows_log2: int, sweep: bool) -> dict:
     log(f"phase4/walk/final,f={it.slow_fraction():.4f},converged="
         f"{int(ctl.converged)},epochs={len(trajectory)},"
         f"bags_per_s={final:.0f},membind_bags_per_s={membind:.0f},"
-        f"launches={launches}")
+        f"launches={launches},bag_reduce_calls={calls}")
     for name, count in launches.items():
         assert count > 0, f"{name} was never launched on the main path"
     landed = it.slow_fraction()
@@ -510,8 +680,11 @@ def phase_slice(stats: dict, rows_log2: int, sweep: bool) -> dict:
     run = stats[f"copy/hbm->pinned/{16 * PAGE_ROWS}"]
     return {
         "launches": launches,
-        "er": {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-               "bound_ms": er_bound,
+        "er": {"ms": r_ms, "plain_ms": rp_ms, "library_ms": rl_ms,
+               "bound_ms": r_bound, "table_ms": k_ms,
+               "table_bound_ms": er_bound, "table_library_ms": l_ms,
+               "routed_f010_ms": forms[0.10]["routed_ms"],
+               "per_shard_f010_ms": forms[0.10]["per_shard_ms"],
                "err": max(er_err, stats["embedding_reduce_err"])},
         "sc": {"ms": run[0], "plain_ms": run[1], "library_ms": run[2],
                "bound_ms": run[3], "nbytes": run[4],
@@ -1492,7 +1665,11 @@ def main(argv=None) -> int:
          "launches": res["launches"]["embedding_reduce"],
          "max_abs_err": er["err"], "ms": er["ms"], "plain_ms": er["plain_ms"],
          "bound_ms": er["bound_ms"], "bound_by": "bytes",
-         "library_ms": er["library_ms"]},
+         "library_ms": er["library_ms"],
+         "table_form": {k: er[k] for k in ("table_ms", "table_bound_ms",
+                                           "table_library_ms")},
+         "slow_0.10": {"routed_ms": er["routed_f010_ms"],
+                       "per_shard_ms": er["per_shard_f010_ms"]}},
         {"name": "stream_copy", "route": "cuda",
          "source": "src/repro_torch/csrc/stream_copy.cu",
          "replaces": "src/repro/kernels/stream_copy/kernel.py:102",

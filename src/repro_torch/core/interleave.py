@@ -8,8 +8,9 @@ testbed exposes three CXL devices from different manufacturers at
 once, §4/Table 1).  The tensor holds one page shard per device plus a
 page->device map; reads and writes are routed to the owning device,
 and embedding-bag reduction (the paper's DLRM §5.2 workload) runs the
-``embedding_reduce`` kernel per shard and sums — numerically identical
-to the un-tiered reduce.
+routed ``embedding_reduce`` kernel, which routes every lookup through
+the page maps and reads every shard (both tiers at once) in one launch —
+bit-identical to a per-shard reduction summed in shard order.
 
 Hot paths (the Caption loop's actuation and access costs):
 
@@ -62,6 +63,7 @@ from repro_torch.core.policy import MemPolicy, largest_remainder_split
 from repro_torch.core.telemetry import GLOBAL_TELEMETRY, Telemetry
 from repro_torch.device import (DeviceLike, resolve_backend, resolve_device,
                                 shard_storage)
+from repro_torch.kernels.embedding_reduce import ops as er_ops, ref as er_ref
 
 #: default movement-run length (pages) the minimal-move planner clusters
 #: its picks into: one mover Descriptor ships one run, so a Δ-page shift
@@ -82,10 +84,6 @@ _GATHER_XLA_PER_BYTE = 0.0002e-6  #: masked per-byte cost, per shard pass
 _GATHER_HOST_BASE_S = 100e-6  #: bucketed fixed cost (route + hand-back)
 _GATHER_HOST_PER_ROW = 0.05e-6  #: per-row indexing overhead
 _GATHER_HOST_PER_BYTE = 0.0003e-6  #: bucketed per-byte copy cost
-
-#: rows an int32 index addresses (the kernel's index width)
-_INT32_ROWS = 1 << 31
-
 
 def _as_numpy(x) -> np.ndarray:
     """Host int64 copy of an index array (tensor on any device, or array)."""
@@ -416,13 +414,8 @@ class InterleavedTensor:
     def _route(self, idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """row idx -> (owning device ordinal, local flat row index), on
         ``self.device``; out-of-range pages clip to the first/last page."""
-        idx = idx.to(device=self.device, dtype=torch.int64)
-        page = torch.div(idx, self.page_rows, rounding_mode="floor")
-        offset = idx - page * self.page_rows
-        page = page.clamp(0, self.n_pages - 1)
-        dev = self.page_device[page]
-        local = self.page_local[page] * self.page_rows + offset
-        return dev, local
+        return er_ref.route(idx, self.page_device, self.page_local,
+                            self.page_rows)
 
     def _route_host(self, idx: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """Host-side :meth:`_route` over the cached maps (no device sync)."""
@@ -592,36 +585,28 @@ class InterleavedTensor:
     ) -> torch.Tensor:
         """Embedding-bag sum across all device shards (DLRM §5.2 reduction).
 
-        ``reduce_fn(table, indices, weights) -> (batch, feature)`` defaults
-        to the ``embedding_reduce`` kernel (its plain version for shards on
-        the CPU).  Rows owned by another device contribute weight 0 to
-        each shard, which the kernel skips without a row load, so the
-        per-shard partials sum to the un-tiered reduction exactly and the
-        slow shard is only read for the rows it owns."""
-        if reduce_fn is None:
-            from repro_torch.kernels.embedding_reduce import ops
-            reduce_fn = ops.embedding_reduce
+        By default one ``embedding_reduce`` launch in its routed form
+        (:func:`~repro_torch.kernels.embedding_reduce.ops.bag_reduce_routed`;
+        its plain version for shards on the CPU): every lookup is routed
+        through the page maps and read once, from its owning shard, with
+        the fast and the slow tier read in the same launch; at most four
+        shards.  ``reduce_fn(table, indices, weights) -> (batch, feature)``
+        instead runs once per shard, with rows owned by another device
+        weighted 0 (the table-form kernel skips them without a row load),
+        and the partials are summed in shard order.  Both give the same
+        bits."""
         indices = torch.as_tensor(indices).to(self.device)
+        if weights is not None:
+            weights = torch.as_tensor(weights).to(self.device)
+        if reduce_fn is None:
+            return er_ops.bag_reduce_routed(self.parts, self.page_device,
+                                            self.page_local, self.page_rows,
+                                            indices, weights)
         if weights is None:
             weights = torch.ones(indices.shape, dtype=self.parts[0].dtype,
                                  device=self.device)
-        weights = torch.as_tensor(weights).to(self.device)
         dev, local = self._route(indices)
-        if max(p.shape[0] for p in self.parts) <= _INT32_ROWS:
-            local = local.to(torch.int32)  # the kernel reads 4-byte indices
-        out = None
-        for i, part in enumerate(self.parts):
-            if part.shape[0] == 0:
-                continue
-            w_i = torch.where(dev == i, weights, 0).to(part.dtype)
-            local_i = local.clamp(max=part.shape[0] - 1)
-            partial = reduce_fn(part, local_i, w_i)
-            out = partial if out is None else out + partial
-        if out is None:  # zero-row tensor
-            feat = tuple(self.parts[0].shape[1:])
-            out = torch.zeros((indices.shape[0],) + feat,
-                              dtype=self.parts[0].dtype, device=self.device)
-        return out
+        return er_ref.reduce_shards(self.parts, dev, local, weights, reduce_fn)
 
     # -- migration (TPP-style page moves; used by elastic re-planning) -------
     def migrate_pages(self, page_ids: np.ndarray, to_slow: bool) -> "InterleavedTensor":

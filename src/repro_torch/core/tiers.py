@@ -263,7 +263,7 @@ H100_HOST_PINNED = TierSpec(
     capacity_bytes=96 * GiB,  # host RAM of a one-card machine; awaiting MEMO
     # measured: stream_copy pinned->HBM on a 256 MiB slab, chip_smoke phase
     # 3, H100 80GB HBM3 at 700 W (random 256 B rows read in place by
-    # embedding_reduce: 26.0 GB/s, phase 2)
+    # embedding_reduce's cp.async ring: 28.25 GB/s, phase 2)
     load_bw=30.24 * GB,
     store_bw=H100_PCIE_BW,  # awaiting MEMO
     # measured: stream_copy HBM->pinned on a 256 MiB slab, chip_smoke

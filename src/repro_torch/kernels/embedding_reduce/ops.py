@@ -1,10 +1,13 @@
-"""Public wrapper for the embedding-bag reduction.
+"""Public wrappers for the embedding-bag reduction: the table form and the
+routed form over an ``InterleavedTensor``'s page shards.
 
-On the card (any CUDA or pinned host tensor among the arguments) it
+On the card (any CUDA or pinned host tensor among the arguments) each
 launches the CUDA kernel or raises; the plain version runs only when
 every tensor lies in pageable host memory.  ``LAUNCHES`` counts kernel
-launches and nothing else."""
+launches of both forms and nothing else."""
 from __future__ import annotations
+
+from typing import Optional, Sequence
 
 import torch
 
@@ -13,6 +16,7 @@ from repro_torch.kernels.embedding_reduce import kernel, ref
 
 #: kernel launches (never bumped by the plain version).
 LAUNCHES = common.LaunchCounter()
+MAX_SHARDS = kernel.MAX_SHARDS
 
 
 def embedding_reduce(table: torch.Tensor, indices: torch.Tensor,
@@ -22,5 +26,29 @@ def embedding_reduce(table: torch.Tensor, indices: torch.Tensor,
     if device is None:
         return ref.embedding_reduce(table, indices, weights)
     out = kernel.embedding_reduce(table, indices, weights, device)
+    LAUNCHES.bump()
+    return out
+
+
+def bag_reduce_routed(parts: Sequence[torch.Tensor], page_device: torch.Tensor,
+                      page_local: torch.Tensor, page_rows: int,
+                      indices: torch.Tensor,
+                      weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Global (B, K) rows over at most ``MAX_SHARDS`` page shards ->
+    (B, D) weighted sums, equal to the per-shard path
+    (``ref.reduce_shards`` over table-form reductions) bit for bit.  One
+    kernel launch on the card, the plain version on the CPU; more shards
+    raise on both."""
+    if not 1 <= len(parts) <= MAX_SHARDS:
+        raise ValueError(f"the routed reduction takes 1 to {MAX_SHARDS} "
+                         f"shards; got {len(parts)}")
+    tensors = (*parts, page_device, page_local, indices)
+    device = common.card_device(
+        *tensors, *(() if weights is None else (weights,)))
+    if device is None:
+        return ref.bag_reduce_routed(parts, page_device, page_local,
+                                     page_rows, indices, weights)
+    out = kernel.bag_reduce_routed(parts, page_device, page_local, page_rows,
+                                   indices, weights, device)
     LAUNCHES.bump()
     return out

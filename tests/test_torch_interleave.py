@@ -32,6 +32,7 @@ from repro_torch.core.policy import MemPolicy as TPolicy  # noqa: E402
 from repro_torch.core.telemetry import Telemetry as TTel  # noqa: E402
 from repro_torch.core.tiers import (paper_three_device_topology as t_paper3,  # noqa: E402
                                     tpu_v5e_topology as t_v5e)
+from repro_torch.kernels.embedding_reduce import ops as t_er  # noqa: E402
 
 RIT, TIT = r_il.InterleavedTensor, t_il.InterleavedTensor
 
@@ -131,6 +132,45 @@ def test_bag_reduce_integer_table_bit_exact_with_kernels(dtype):
     ref = r.bag_reduce(jnp.asarray(idx), jnp.asarray(w),
                        reduce_fn=r_er.embedding_reduce)
     got = t.bag_reduce(torch.from_numpy(idx), torch.from_numpy(w))
+    assert np.array_equal(_np(got.float()),
+                          np.asarray(ref.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("weighted", [True, False])
+def test_bag_reduce_is_one_routed_call_equal_to_the_per_shard_path(
+        monkeypatch, dtype, weighted):
+    """``bag_reduce`` makes one routed call, whose result equals the
+    per-shard path (the port's and the reference's with its Pallas
+    kernel) over the three-device drain map, bit for bit on an integer
+    table, negative and out-of-range rows included."""
+    rng = np.random.default_rng(13)
+    x = rng.integers(-8, 9, size=(64 * 4, 4)).astype(np.float32)
+    names = ("fast", "cxl-a", "cxl-b")
+    r, t = _build(x, (names, (4, 2, 2)), 4, headroom=16)
+    if dtype == "bfloat16":
+        r = RIT.from_array(jnp.asarray(x, jnp.bfloat16),
+                           RPolicy.weighted(names, (4, 2, 2)), 4, headroom=16)
+        t = TIT.from_array(torch.from_numpy(x).to(torch.bfloat16),
+                           TPolicy.weighted(names, (4, 2, 2)), 4, headroom=16,
+                           device="cpu")
+    r = r.drain_device("cxl-a", telemetry=RTel())
+    t = t.drain_device("cxl-a", telemetry=TTel())
+    idx = rng.integers(-9, 64 * 4 + 9, size=(5, 16))
+    w = rng.integers(0, 3, size=idx.shape).astype(np.float32)
+    w_t = torch.from_numpy(w) if weighted else None
+    calls = []
+    routed = t_er.bag_reduce_routed
+    monkeypatch.setattr(t_er, "bag_reduce_routed",
+                        lambda *a: calls.append(a) or routed(*a))
+    got = t.bag_reduce(torch.from_numpy(idx), w_t)
+    assert len(calls) == 1
+    per_shard = t.bag_reduce(torch.from_numpy(idx), w_t,
+                             reduce_fn=t_er.embedding_reduce)
+    assert len(calls) == 1
+    ref = r.bag_reduce(jnp.asarray(idx), jnp.asarray(w) if weighted else None,
+                       reduce_fn=r_er.embedding_reduce)
+    assert torch.equal(got, per_shard)
     assert np.array_equal(_np(got.float()),
                           np.asarray(ref.astype(jnp.float32)))
 

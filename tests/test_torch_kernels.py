@@ -9,6 +9,9 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro.core import interleave as r_il  # noqa: E402
+from repro.core.policy import MemPolicy as RPolicy  # noqa: E402
+from repro.core.telemetry import Telemetry as RTel  # noqa: E402
 from repro.kernels.embedding_reduce import ops as r_er  # noqa: E402
 from repro.kernels.stream_copy import ops as r_sc  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
@@ -107,6 +110,122 @@ def test_embedding_reduce_plain_sums_in_k_order():
     assert t_er_ref.embedding_reduce(table, idx, w).item() == 0.0
     assert t_er_ref.embedding_reduce(table, torch.tensor([[0, 2, 1]]),
                                      w).item() == 1.0
+
+
+# -- embedding_reduce, routed form: plain version vs the reference -----------------
+THREE = ("fast", "cxl-a", "cxl-b")
+#: (device names, weights, page_rows, headroom, drained device): two shards;
+#: the three-device drain map of test_three_device_drain_and_reassign_equal
+#: (cxl-a keeps its capacity, no pages); a shard of 0 rows
+ROUTED_CASES = {
+    "two": (("fast", "slow"), (3, 1), 8, 4, None),
+    "three_drained": (THREE, (4, 2, 2), 4, 16, "cxl-a"),
+    "empty_shard": (THREE, (3, 0, 1), 4, 0, None),
+}
+
+
+def _sharded(table: np.ndarray, case: str, dtype: str):
+    """A reference InterleavedTensor over ``table`` and its shards and page
+    maps as torch tensors (the same values)."""
+    names, weights, page_rows, headroom, drained = ROUTED_CASES[case]
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    r = r_il.InterleavedTensor.from_array(
+        jnp.asarray(table, jnp.float32).astype(jdt),
+        RPolicy.weighted(names, weights), page_rows, headroom=headroom)
+    if drained is not None:
+        r = r.drain_device(drained, telemetry=RTel())
+    parts = [torch.from_numpy(np.array(p.astype(jnp.float32))).to(
+        getattr(torch, dtype)) for p in r.parts]
+    maps = (torch.from_numpy(np.asarray(r.page_device).astype(np.int8)),
+            torch.from_numpy(np.asarray(r.page_local).astype(np.int64)))
+    return r, parts, maps, page_rows
+
+
+def _bags(rng, rows: int, page_rows: int, B: int, K: int) -> np.ndarray:
+    """Random bags with duplicates and negative and out-of-range rows."""
+    idx = rng.integers(0, rows, size=(B, K))
+    idx[:, 1] = idx[:, 0]
+    idx[0, 2:8] = [-1, -page_rows - 3, -10 ** 6, rows, rows + 5, 10 ** 6]
+    return idx
+
+
+@pytest.mark.parametrize("case", sorted(ROUTED_CASES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("weighted", [True, False])
+def test_bag_reduce_routed_plain_bit_exact_with_pallas(case, dtype, weighted):
+    """Integer tables: the routed plain version equals the reference's
+    per-shard path with its Pallas kernel bit for bit (zero weights,
+    duplicates, negative and out-of-range rows, empty shards)."""
+    rng = np.random.default_rng(len(case) + 3 * weighted)
+    rows = 61
+    table = rng.integers(-8, 9, size=(rows, 16)).astype(np.float32)
+    r, parts, (pd, pl), page_rows = _sharded(table, case, dtype)
+    idx = _bags(rng, rows, page_rows, 3, 12)
+    w = rng.integers(0, 3, size=idx.shape).astype(np.float32)
+    ref = r.bag_reduce(jnp.asarray(idx), jnp.asarray(w) if weighted else None,
+                       reduce_fn=r_er.embedding_reduce)
+    got = t_er.bag_reduce_routed(parts, pd, pl, page_rows,
+                                 torch.from_numpy(idx),
+                                 torch.from_numpy(w) if weighted else None)
+    assert got.dtype == parts[0].dtype and got.shape == (3, 16)
+    assert np.array_equal(_np(got), _np(ref))
+
+
+@pytest.mark.parametrize("case", sorted(ROUTED_CASES))
+def test_bag_reduce_routed_plain_random_tables(case):
+    rng = np.random.default_rng(21)
+    rows = 61
+    table = rng.normal(size=(rows, 8)).astype(np.float32)
+    r, parts, (pd, pl), page_rows = _sharded(table, case, "float32")
+    idx = _bags(rng, rows, page_rows, 4, 10)
+    w = rng.uniform(size=idx.shape).astype(np.float32)
+    ref = r.bag_reduce(jnp.asarray(idx), jnp.asarray(w),
+                       reduce_fn=r_er.embedding_reduce)
+    got = t_er.bag_reduce_routed(parts, pd, pl, page_rows,
+                                 torch.from_numpy(idx), torch.from_numpy(w))
+    np.testing.assert_allclose(_np(got), _np(ref), atol=1e-5)
+
+
+def test_bag_reduce_routed_route_floors_negative_rows():
+    """Pages are floors (not truncations) and offsets come from the
+    unclamped page: row -1 is page -1's last row, clipped to page 0."""
+    pd = torch.tensor([0, 1], dtype=torch.int8)
+    pl = torch.tensor([0, 0], dtype=torch.int64)
+    dev, local = t_er_ref.route(torch.tensor([-1, -4, -5, 3, 4, 9, 100]), pd,
+                                pl, 4)
+    assert dev.tolist() == [0, 0, 0, 0, 1, 1, 1]
+    assert local.tolist() == [3, 0, 3, 3, 0, 1, 0]
+
+
+class _CudaStandIn:
+    """Stands for a CUDA tensor in the wrappers' dispatch checks."""
+    is_cuda = True
+    device = torch.device("cuda", 0)
+
+    def is_pinned(self) -> bool:
+        return False
+
+
+def test_bag_reduce_routed_refusals():
+    """More than four shards raise on any device (no loop of per-shard
+    launches); pageable host memory beside a CUDA tensor raises instead of
+    taking the plain version."""
+    part = torch.zeros((8, 4))
+    pd = torch.zeros(2, dtype=torch.int8)
+    pl = torch.tensor([0, 1])
+    idx = torch.zeros((2, 3), dtype=torch.int64)
+    t_er.LAUNCHES.reset()
+    with pytest.raises(ValueError, match="1 to 4 shards"):
+        t_er.bag_reduce_routed([part] * 5, pd, pl, 4, idx)
+    with pytest.raises(ValueError, match="1 to 4 shards"):
+        t_er.bag_reduce_routed([], pd, pl, 4, idx)
+    with pytest.raises(ValueError, match="pinned"):
+        t_er.bag_reduce_routed([_CudaStandIn(), part], pd, pl, 4, idx)
+    with pytest.raises(ValueError, match="pinned"):
+        t_er.embedding_reduce(part, _CudaStandIn(), torch.ones((2, 3)))
+    assert t_er.LAUNCHES.count == 0
+    assert t_er.bag_reduce_routed([part] * 4, pd, pl, 4, idx).shape == (2, 4)
+    assert t_er.LAUNCHES.count == 0  # the plain version counts nothing
 
 
 # -- stream_copy: plain version vs the Pallas ops --------------------------------
@@ -248,6 +367,59 @@ def test_embedding_reduce_kernel_matches_plain(cuda, dtype, memory):
         assert torch.equal(got, want)
     else:
         torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+def test_embedding_reduce_kernel_reads_indices_as_given(cuda, index_dtype):
+    """fp32, bit for bit, through int32 and int64 indices (no cast launch):
+    the vector path, the scalar path (D = 24), column tiles (D = 512) and
+    bags longer than the staging area (K = 600)."""
+    g = torch.Generator().manual_seed(4)
+    for V, D, B, K in ((4096, 64, 256, 80), (300, 24, 17, 5),
+                       (64, 512, 3, 33), (1000, 64, 9, 600)):
+        table = torch.randn((V, D), generator=g)
+        idx = torch.randint(0, V, (B, K), generator=g)
+        w = torch.rand((B, K), generator=g)
+        w[:, ::5] = 0
+        got = t_er.embedding_reduce(table.to(cuda), idx.to(cuda, index_dtype),
+                                    w.to(cuda))
+        want = t_er_ref.embedding_reduce(table, idx, w)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), (V, D, B, K)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("slow", [0.0, 0.10, 0.5])
+def test_bag_reduce_routed_kernel_equals_per_shard_kernels(cuda, dtype, slow):
+    """An HBM shard and a pinned shard: one routed launch per bag_reduce
+    call, equal bit for bit to the table-form kernel per shard summed in
+    shard order; int32 and int64 indices, negative and out-of-range rows,
+    given weights (also fp32 over a bf16 table) or none."""
+    from repro_torch.core.interleave import InterleavedTensor
+    from repro_torch.core.policy import MemPolicy
+    from repro_torch.core.telemetry import Telemetry
+    g = torch.Generator().manual_seed(5)
+    rows, page_rows = 64 * 300, 64
+    table = torch.randn((rows, 64), generator=g).to(dtype)
+    it = InterleavedTensor.from_array(
+        table, MemPolicy.weighted(("fast", "slow"), (1, 0)), page_rows,
+        headroom=160, device=cuda)
+    it = it.repartition_fraction(slow, telemetry=Telemetry(), donate=True)
+    assert it.parts[0].is_cuda and it.parts[1].is_pinned()
+    idx = torch.randint(-100, rows + 100, (256, 80), generator=g)
+    idx[:, 1] = idx[:, 0]
+    w = torch.rand((256, 80), generator=g)
+    w[:, ::7] = 0
+    for weights in (w.to(cuda, dtype), w.to(cuda), None):
+        for ix in (idx.to(cuda), idx.to(cuda, torch.int32)):
+            before = t_er.LAUNCHES.count
+            got = it.bag_reduce(ix, weights)
+            assert t_er.LAUNCHES.count == before + 1
+            want = it.bag_reduce(ix, weights, reduce_fn=t_er.embedding_reduce)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (slow, weights is None, ix.dtype)
 
 
 @pytest.mark.cuda
