@@ -58,9 +58,12 @@ wrong result or a missing kernel launch:
 7. ``wkv6`` against its plain version: the shapes of the reference's
    kernel tests in fp32, T = 1 and T = 1000, the rwkv slice's prefill
    shape (16 x 1024 x 64 heads x 64, bf16 r/k/v, fp32 w, nonzero u and
-   starting state) and decode shape (T = 1), the state carried across two
-   calls, ``state_out`` aliasing ``state``; then its time at both shapes
-   against its plain version and its byte bound.
+   starting state) and decode shape (T = 1), the ring's ragged last chunk
+   (T = 15, 17, 33) and the model's decay distribution (w = exp(-exp(x)),
+   x in [-6, 3]) at head dims 16, 32 and 64 in fp32 and bf16, views that
+   are not 16-byte aligned, the state carried across two calls,
+   ``state_out`` aliasing ``state``; then its time at both shapes against
+   its plain version and its byte bound, with the blocks an SM holds.
 8. the rwkv slice: rwkv6-7b at full width and depth, bf16, random weights
    from a seeded generator; the recurrent state placed by the planner
    (pinned to HBM).  A prefill of 16 prompts of 1024 tokens, then 64
@@ -1290,16 +1293,23 @@ RWKV_FP32_BOUND = 1e-2
 WKV_TOL = dict(atol=1e-4, rtol=1e-5)
 
 
-def _wkv_inputs(g, B, T, H, hd, rkv_dtype):
+def _wkv_inputs(g, B, T, H, hd, rkv_dtype, decay: str = "reference"):
     """r, k, v, w, u, state on the card, drawn as the reference's kernel
-    tests draw them (w in (0.5, 1)), with a nonzero u and starting state."""
+    tests draw them (w in (0.5, 1)), with a nonzero u and starting state.
+    ``decay="model"`` draws w as the model makes it, exp(-exp(x)), with x
+    uniform in [-6, 3]: w from ~2e-9 (the state all but wiped in one
+    step) to ~0.9975."""
     import torch
 
     def randn(*shape):
         return torch.randn(shape, generator=g, device=DEVICE)
 
     r, k, v = ((randn(B, T, H, hd) * s).to(rkv_dtype) for s in (0.5, 0.5, 1))
-    w = torch.sigmoid(randn(B, T, H, hd)) * 0.5 + 0.5
+    if decay == "model":
+        x = torch.rand((B, T, H, hd), generator=g, device=DEVICE) * 9 - 6
+        w = torch.exp(-torch.exp(x))
+    else:
+        w = torch.sigmoid(randn(B, T, H, hd)) * 0.5 + 0.5
     return r, k, v, w, randn(H, hd) * 0.1, randn(B, H, hd, hd) * 0.1
 
 
@@ -1337,20 +1347,42 @@ def phase_wkv6(stats: dict) -> None:
     """Kernel == plain version on every listed shape; then its time at the
     rwkv slice's prefill and decode shapes."""
     import torch
-    from repro_torch.kernels.wkv6 import ops, ref
+    from repro_torch.kernels.wkv6 import kernel, ops, ref
     g = torch.Generator(device=DEVICE).manual_seed(7)
     f32, bf16 = torch.float32, torch.bfloat16
     B, T, H, hd = RWKV_B, RWKV_T, RWKV_H, RWKV_HD
-    cases = [(shape, f32) for shape in WKV_SWEEP] + [
-        ((2, 1, 4, 64), f32), ((2, 1000, 4, 64), f32),
-        ((2, 1, 4, 64), bf16), ((2, 1000, 4, 64), bf16),
-        ((B, T, H, hd), bf16), ((B, 1, H, hd), bf16)]
+    ref_w, model_w = "reference", "model"
+    cases = [(shape, f32, ref_w) for shape in WKV_SWEEP] + [
+        ((2, 1, 4, 64), f32, ref_w), ((2, 1000, 4, 64), f32, ref_w),
+        ((2, 1, 4, 64), bf16, ref_w), ((2, 1000, 4, 64), bf16, ref_w),
+        ((B, T, H, hd), bf16, ref_w), ((B, 1, H, hd), bf16, ref_w)]
+    # the ring's ragged last chunk (16 steps a chunk in the default
+    # build), and the model's decay distribution, at every head dim
+    cases += [((2, t, 2, d), dtype, ref_w) for d in (16, 32, 64)
+              for t in (15, 17, 33) for dtype in (f32, bf16)]
+    cases += [((2, 37, 2, d), dtype, model_w) for d in (16, 32, 64)
+              for dtype in (f32, bf16)]
+    cases += [((B, T, H, hd), bf16, model_w)]
     worst = 0.0
-    for shape, dtype in cases:
-        err = check_wkv(*_wkv_inputs(g, *shape, dtype))
+    for shape, dtype, decay in cases:
+        err = check_wkv(*_wkv_inputs(g, *shape, dtype, decay))
         worst = max(worst, err)
         log(f"phase7/wkv6/{str(dtype)[6:]}/B{shape[0]}xT{shape[1]}xH{shape[2]}"
-            f"xhd{shape[3]},max_abs_err={err:.3g}")
+            f"xhd{shape[3]},w={decay},max_abs_err={err:.3g}")
+    # views that are not 16-byte aligned (r, k, v one element into a
+    # wider buffer; w likewise): the ring copies them element by element
+    for dtype in (f32, bf16):
+        r, k, v, w, u, s0 = _wkv_inputs(g, 2, 33, 2, 64, dtype, model_w)
+        wide = [torch.zeros((2, 33, 2, 66), dtype=a.dtype, device=DEVICE)
+                for a in (r, k, v, w)]
+        for buf, a in zip(wide, (r, k, v, w)):
+            buf[..., 1:65] = a
+        r, k, v, w = (buf[..., 1:65] for buf in wide)
+        assert r.data_ptr() % 16 != 0
+        err = check_wkv(r, k, v, w, u, s0)
+        worst = max(worst, err)
+        log(f"phase7/wkv6/unaligned/{str(dtype)[6:]}/B2xT33xH2xhd64,"
+            f"max_abs_err={err:.3g}")
     # the state carried across two calls (an odd split) against one call
     for shape, cut in (((1, 64, 2, 16), 32), ((B, T, H, hd), T // 2 + 1)):
         r, k, v, w, u, s0 = _wkv_inputs(g, *shape, bf16)
@@ -1372,6 +1404,7 @@ def phase_wkv6(stats: dict) -> None:
         err = check_wkv(*_wkv_inputs(g, B, t, H, hd, bf16), alias=True)
         worst = max(worst, err)
         log(f"phase7/wkv6/alias/B{B}xT{t}xH{H}xhd{hd},max_abs_err={err:.3g}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for t, label in ((T, "prefill"), (1, "decode")):
         # At T = 1 the state (16.8 MB in, 16.8 MB out) would stay in the
         # 50 MB L2 between back-to-back calls, where on the path a whole
@@ -1391,13 +1424,16 @@ def phase_wkv6(stats: dict) -> None:
         p_ms = time_ms(lambda: call(ref.wkv6), iters=2 if t > 1 else 12,
                        warmup=1, queue_ahead=True)
         bound, bound_by = wkv_bound(sets[0][0], sets[0][3])
+        per_sm, per_block = kernel.blocks_per_sm(bf16, f32, hd, t)
         if label == "prefill":  # the kernels line's shape
             stats["wkv"] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
                             "bound_by": bound_by}
         log(f"phase7/wkv6/{label}_shape,B{B}xT{t}xH{H}xhd{hd},ms={k_ms:.4f},"
             f"plain_ms={p_ms:.4f},bound_ms={bound:.4f},bound_by={bound_by},"
-            f"bound_share={bound / k_ms:.3f},library_ms=none")
-    log(f"phase7/wkv6/sweep,cases={len(cases) + 4},max_abs_err={worst:.3g}")
+            f"bound_share={bound / k_ms:.3f},library_ms=none,"
+            f"pairs={B * H},pairs_per_block={per_block},"
+            f"resident_blocks_per_sm={per_sm},sms={sms}")
+    log(f"phase7/wkv6/sweep,cases={len(cases) + 6},max_abs_err={worst:.3g}")
     stats["wkv"]["err"] = worst
     ops.LAUNCHES.reset()
 

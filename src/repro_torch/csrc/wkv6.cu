@@ -9,43 +9,121 @@
 // with S[i][j] indexed (k-dim, v-dim).  Exact recurrence, no chunked 1/P
 // rescaling (which overflows for small decays).
 //
-// What bounds it: bytes, narrowly.  Per (b, t, h) the kernel reads r, k,
-// v (bf16 on the model's path) and w (fp32) and writes y (fp32): 14·hd
-// bytes against ~4·hd² fp32 operations (the dot product r·S, the decay
-// and rank-1 update of S).  At hd = 64 that is 18 operations per byte,
-// below the 20 per byte (67 TFLOP/s over 3.35 TB/s) at which the fp32
-// pipes outside the tensor cores would bind.  The state is read once
-// and written once per launch, so device-memory traffic is one pass over
-// the inputs, as on the TPU.
+// What bounds it on this card: FP32 issue, then bytes.  Per (b, t, h) the
+// kernel reads r, k, v (bf16 on the model's path) and w (fp32) and writes
+// y (fp32): 14·hd bytes, 0.29 ms at the rwkv prefill shape (16 x 1024 x
+// 64 heads of 64) over 3.35 TB/s.  The exact step costs 3 FP32
+// lane-instructions per state element (the y FMA, the k·v MUL, the decay
+// FMA): 12.9 G at that shape, 0.39 ms at 132 SMs x 128 lanes x 1.98 GHz.
+// So the kernel is bound by the issue of its own arithmetic, and the
+// design spends as few other instructions per element-step as it can:
 //
-// Design:
-// * One block per (b, h); the loop over t inside the block takes the
-//   place of the TPU's sequential grid axis, and blocks share nothing.
-// * hd threads: thread j keeps column S[:, j] (hd fp32 values) in
-//   registers for the whole sequence, so the state never touches shared
-//   or device memory between the first read and the last write.
-// * Time is staged CT steps at a time: each thread loads element j of r,
-//   k, v and w for CT steps (consecutive threads on consecutive elements:
-//   coalesced, read in place through the (B, T, H, hd) strides, cast to
-//   fp32 on the way into shared memory), then one thread per step forms
-//   the bonus sum_i r_i u_i k_i, so a block synchronises three times per
-//   CT steps instead of once per step.  Each step then reads r, k, w as
-//   shared-memory broadcasts (float4), four partial sums break the
-//   dot product's dependence chain, and y is stored coalesced.
+// * Register tiles.  A thread keeps a TI x TJ tile of the state (rows i,
+//   columns j) in registers for the whole sequence.  Per step it reads r,
+//   k, w for its TI rows and v for its TJ columns from shared memory in
+//   16-byte loads (8 x 8 at hd 64: 5 loads and 24 bf16 conversions per
+//   192 FP32 instructions), so loads no longer compete with the FMAs.
+// * The bonus in the tile.  Each thread forms its rows' part of
+//   sum_i r_i u_i k_i and folds v_j times it into its y partials, which
+//   the NIG = hd / TI threads that share a column group (one warp) sum by
+//   a reduce-scatter of `__shfl_xor_sync`; each thread ends with TJ / NIG
+//   whole y values, and a warp stores 32 consecutive floats of y per step
+//   (one full 128-byte line).
+// * A `cp.async` ring.  r, k, v, w go from device memory to shared memory
+//   in 16-byte pieces (`.cg`), S stages of CT steps, the next S - 1
+//   chunks in flight while one is computed; one barrier a chunk.  The
+//   ragged last chunk copies and computes only its valid steps.  Inputs
+//   whose pointers or strides are not 16-byte aligned are copied element
+//   by element through the same ring.
+// * Residency.  1024 blocks (B·H at the prefill shape) fill 132 SMs in
+//   one wave at 8 blocks an SM: 64 threads with <= 128 registers and
+//   ~21 KB of ring a block at hd 64.
 // * state_in and state_out may be the same buffer: each thread reads its
-//   own column before the loop and writes it after.
+//   own tile before the loop and writes it after, and no other thread
+//   touches it.
 //
-// Left for later (PERF.md): B·H blocks of hd threads fill 132 SMs only
-// at large B·H, and a block waits for each staged chunk; a chunked form
-// on `mma` over time, more blocks per (b, h) through a split of the
-// v-columns, and a register prefetch of the next chunk are the next steps.
+// Build-time hooks, for tools/wkv6_probe.py (each defaults to the build
+// above): WKV_TI x WKV_TJ the hd-64 tile, WKV_CT steps a chunk, WKV_S ring
+// stages, WKV_MINB blocks an SM for `__launch_bounds__`, WKV_TWO_STEP the
+// two-step update below, WKV_YSTAGE y staged a chunk at a time in shared
+// memory and stored in 16-byte pieces, WKV_MARK(k) a phase mark.
+//
+// The two-step update (WKV_TWO_STEP=1) advances the state over steps a, b
+// at once, with products of w only:
+//   S'' = diag(w_b w_a) S + (w_b k_a) v_a^T + k_b v_b^T
+//   y_b = (r_b w_a)^T S + (r_b . k_a) v_a + (r_b . u k_b) v_b
+// 5 FP32 instructions per element for two steps instead of 6.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#ifndef WKV_TI
+#define WKV_TI 16
+#endif
+#ifndef WKV_TJ
+#define WKV_TJ 8
+#endif
+#ifndef WKV_CT
+#define WKV_CT 16
+#endif
+#ifndef WKV_S
+#define WKV_S 2
+#endif
+#ifndef WKV_MINB
+#define WKV_MINB 8
+#endif
+#ifndef WKV_G
+#define WKV_G 8
+#endif
+#ifndef WKV_G_T
+#define WKV_G_T 2
+#endif
+#ifndef WKV_SYNC
+#define WKV_SYNC 1
+#endif
+#ifndef WKV_TWO_STEP
+#define WKV_TWO_STEP 0
+#endif
+#ifndef WKV_YSTAGE
+#define WKV_YSTAGE 0
+#endif
+#ifndef WKV_MARK
+#define WKV_MARK(k)
+#endif
+
 namespace {
 
-constexpr int CT = 16;  // time steps staged per chunk (<= the smallest hd)
+constexpr int CT = WKV_CT;  // time steps a chunk
+constexpr int S = WKV_S;    // ring stages
+static_assert(S >= 2, "the ring needs two stages");
+static_assert(!WKV_TWO_STEP || CT % 2 == 0, "two-step chunks are even");
+
+// the tile a thread holds, per head dim: TI rows x TJ columns
+template <int HD> struct Tile;
+template <> struct Tile<16> { static constexpr int TI = 4, TJ = 2; };
+template <> struct Tile<32> { static constexpr int TI = 8, TJ = 4; };
+template <> struct Tile<64> { static constexpr int TI = WKV_TI, TJ = WKV_TJ; };
+
+// A thread (row group ig, column group jg) holds rows ig·TI + [0, TI) and
+// its TJ columns in pieces of VW: piece p is columns p·VW·NJG + jg·VW +
+// [0, VW), so that the column groups of a warp cover whole 32-byte
+// sectors of a state row with each vector load or store.
+template <int HD> struct Shape {
+  static constexpr int TI = Tile<HD>::TI, TJ = Tile<HD>::TJ;
+  static constexpr int NIG = HD / TI;           // row groups (lanes of a sum)
+  static constexpr int NJG = HD / TJ;           // column groups
+  static constexpr int NT = NIG * NJG;          // threads a block
+  static constexpr int VW = TJ < 4 ? TJ : 4;    // columns a piece
+  static constexpr int PS = VW * NJG;           // columns from piece to piece
+  static constexpr int R = TJ >= NIG ? TJ / NIG : 1;  // y values a lane stores
+  static_assert(HD % TI == 0 && HD % TJ == 0 && TJ % VW == 0, "tile");
+  static_assert(NIG <= 32 && 32 % NIG == 0 && NT % 32 == 0, "lanes");
+  static_assert(R <= VW, "a lane's y values lie in one piece");
+  // column of the thread's value q (jg's own columns start at jg·VW)
+  __device__ static __forceinline__ int col(int jg, int q) {
+    return (q / VW) * PS + jg * VW + q % VW;
+  }
+};
 
 struct Args {
   const void* r;        // (B, T, H, hd), last dim contiguous
@@ -58,107 +136,450 @@ struct Args {
   const float* s_in;    // (B, H, hd, hd) contiguous
   float* s_out;         // (B, H, hd, hd) contiguous; may be s_in
   float* y;             // (B, T, H, hd) contiguous
-  int T, H;
+  int T, H, BH;
+  bool vec;             // r, k, v, w (pointers, strides) and states 16-byte aligned
 };
 
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+template <typename RKV, typename WT, int HD> struct Smem {
+  RKV r[S][CT][HD], k[S][CT][HD], v[S][CT][HD];
+  WT w[S][CT][HD];
+  float u[HD];
+#if WKV_YSTAGE
+  float y[2][CT][HD];
+#endif
+};
 
-template <typename RKV, typename WT, int HD>
-__global__ void __launch_bounds__(HD) wkv6_kernel(Args a) {
-  static_assert(HD % 4 == 0 && CT <= HD, "head dim");
-  __shared__ __align__(16) float sr[CT][HD];
-  __shared__ __align__(16) float sk[CT][HD];
-  __shared__ __align__(16) float sw[CT][HD];
-  __shared__ float sv[CT][HD];
-  __shared__ float su[HD];
-  __shared__ float sbonus[CT];
+__device__ __forceinline__ void cp16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
-  const int bh = blockIdx.x;
-  const int b = bh / a.H, h = bh % a.H;
-  const int j = threadIdx.x;
-  const RKV* rp = static_cast<const RKV*>(a.r) + b * a.sb + h * a.sh + j;
-  const RKV* kp = static_cast<const RKV*>(a.k) + b * a.sb + h * a.sh + j;
-  const RKV* vp = static_cast<const RKV*>(a.v) + b * a.sb + h * a.sh + j;
-  const WT* wp = static_cast<const WT*>(a.w) + b * a.wsb + h * a.wsh + j;
-  su[j] = a.u[h * HD + j];
-
-  float s[HD];  // column j of the state
-  const float* s_in = a.s_in + (int64_t)bh * HD * HD + j;
+// Stage n <= CT steps of one (B, T, H, hd) input, starting at src, into
+// dst[CT][HD]: 16-byte cp.async pieces, or elements when not aligned.
+template <typename E, int HD, int NT>
+__device__ __forceinline__ void stage(E* dst, const E* src, int64_t st, int n, int tid,
+                                      bool vec) {
+  constexpr int PER = 16 / sizeof(E);
+  constexpr int ROW = HD / PER;  // pieces a step
+  if (vec) {
 #pragma unroll
-  for (int i = 0; i < HD; ++i) s[i] = s_in[i * HD];
-
-  float* yp = a.y + ((int64_t)b * a.T * a.H + h) * HD + j;
-  const int64_t y_st = (int64_t)a.H * HD;
-
-  for (int t0 = 0; t0 < a.T; t0 += CT) {
-    const int n = min(CT, a.T - t0);
-    __syncthreads();  // the previous chunk is consumed (and su is written)
-    for (int c = 0; c < n; ++c) {
-      const int64_t t = t0 + c;
-      sr[c][j] = ld(rp + t * a.st);
-      sk[c][j] = ld(kp + t * a.st);
-      sv[c][j] = ld(vp + t * a.st);
-      sw[c][j] = ld(wp + t * a.wst);
+    for (int q = 0; q < (CT * ROW + NT - 1) / NT; ++q) {
+      const int p = tid + q * NT, c = p / ROW, e = (p % ROW) * PER;
+      if (p < CT * ROW && c < n) cp16(dst + c * HD + e, src + c * st + e);
     }
-    __syncthreads();
-    if (j < n) {
-      // bonus of step j: sum_i r_i u_i k_i, columns rotated by j so that
-      // the CT threads hit distinct banks
-      float bonus = 0.f;
-#pragma unroll 8
-      for (int ii = 0; ii < HD; ++ii) {
-        const int i = (ii + j) % HD;
-        bonus = fmaf(sr[j][i] * su[i], sk[j][i], bonus);
-      }
-      sbonus[j] = bonus;
+  } else {
+    for (int p = tid; p < n * HD; p += NT) dst[p] = src[(p / HD) * st + p % HD];
+  }
+}
+
+__device__ __forceinline__ float lo(uint32_t x) { return __uint_as_float(x << 16); }
+__device__ __forceinline__ float hi(uint32_t x) { return __uint_as_float(x & 0xffff0000u); }
+
+// N consecutive values at p (shared or global, 16-byte aligned when N
+// fills 16 bytes) as fp32, in the widest loads that fit.
+template <int N>
+__device__ __forceinline__ void ld(const float* p, float (&o)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < N; q += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(p + q);
+      o[q] = x.x; o[q + 1] = x.y; o[q + 2] = x.z; o[q + 3] = x.w;
     }
-    __syncthreads();
-    for (int c = 0; c < n; ++c) {
-      const float vj = sv[c][j];
-      float acc0 = 0.f, acc1 = 0.f, acc2 = 0.f, acc3 = 0.f;
+  } else {
 #pragma unroll
-      for (int i = 0; i < HD; i += 4) {
-        const float4 r4 = *reinterpret_cast<const float4*>(&sr[c][i]);
-        acc0 = fmaf(r4.x, s[i], acc0);
-        acc1 = fmaf(r4.y, s[i + 1], acc1);
-        acc2 = fmaf(r4.z, s[i + 2], acc2);
-        acc3 = fmaf(r4.w, s[i + 3], acc3);
-      }
-      yp[(int64_t)(t0 + c) * y_st] = ((acc0 + acc1) + (acc2 + acc3)) + vj * sbonus[c];
+    for (int q = 0; q < N; q += 2) {
+      const float2 x = *reinterpret_cast<const float2*>(p + q);
+      o[q] = x.x; o[q + 1] = x.y;
+    }
+  }
+}
+template <int N>
+__device__ __forceinline__ void ld(const __nv_bfloat16* p, float (&o)[N]) {
+  if constexpr (N % 8 == 0) {
 #pragma unroll
-      for (int i = 0; i < HD; i += 4) {
-        const float4 w4 = *reinterpret_cast<const float4*>(&sw[c][i]);
-        const float4 k4 = *reinterpret_cast<const float4*>(&sk[c][i]);
-        s[i] = fmaf(w4.x, s[i], k4.x * vj);
-        s[i + 1] = fmaf(w4.y, s[i + 1], k4.y * vj);
-        s[i + 2] = fmaf(w4.z, s[i + 2], k4.z * vj);
-        s[i + 3] = fmaf(w4.w, s[i + 3], k4.w * vj);
+    for (int q = 0; q < N; q += 8) {
+      const uint4 x = *reinterpret_cast<const uint4*>(p + q);
+      o[q] = lo(x.x); o[q + 1] = hi(x.x); o[q + 2] = lo(x.y); o[q + 3] = hi(x.y);
+      o[q + 4] = lo(x.z); o[q + 5] = hi(x.z); o[q + 6] = lo(x.w); o[q + 7] = hi(x.w);
+    }
+  } else if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < N; q += 4) {
+      const uint2 x = *reinterpret_cast<const uint2*>(p + q);
+      o[q] = lo(x.x); o[q + 1] = hi(x.x); o[q + 2] = lo(x.y); o[q + 3] = hi(x.y);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < N; q += 2) {
+      const uint32_t x = *reinterpret_cast<const uint32_t*>(p + q);
+      o[q] = lo(x); o[q + 1] = hi(x);
+    }
+  }
+}
+
+// The TJ values of a thread's columns from a row whose column jg·VW is
+// at p: TJ / VW pieces, PS apart.
+template <int HD, typename E>
+__device__ __forceinline__ void ld_cols(const E* p, float (&o)[Shape<HD>::TJ]) {
+  using Sh = Shape<HD>;
+#pragma unroll
+  for (int q = 0; q < Sh::TJ; q += Sh::VW) {
+    float x[Sh::VW];
+    ld<Sh::VW>(p + (q / Sh::VW) * Sh::PS, x);
+#pragma unroll
+    for (int e = 0; e < Sh::VW; ++e) o[q + e] = x[e];
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void st_vec(float* p, const float (&o)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < N; q += 4)
+      *reinterpret_cast<float4*>(p + q) = make_float4(o[q], o[q + 1], o[q + 2], o[q + 3]);
+  } else if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int q = 0; q < N; q += 2) *reinterpret_cast<float2*>(p + q) = make_float2(o[q], o[q + 1]);
+  } else {
+    p[0] = o[0];
+  }
+}
+
+// Sum y[TJ] over the NIG lanes (xor masks M, M/2, .., 1) that share a
+// column group, halving the values a lane keeps while N > 1: the lane
+// ends with y[0, N_final) whole, at column offset `off` in its group.
+template <int M, int N, int TJ>
+__device__ __forceinline__ void reduce(float (&y)[TJ], int ig, int& off) {
+  if constexpr (N > 1) {
+    constexpr int HN = N / 2;
+    const bool up = (ig & M) != 0;
+#pragma unroll
+    for (int q = 0; q < HN; ++q) {
+      const float send = up ? y[q] : y[q + HN];
+      const float keep = up ? y[q + HN] : y[q];
+      y[q] = keep + __shfl_xor_sync(0xffffffffu, send, M);
+    }
+    off += up ? HN : 0;
+    if constexpr (M > 1) reduce<M / 2, HN, TJ>(y, ig, off);
+  } else {
+    y[0] += __shfl_xor_sync(0xffffffffu, y[0], M);
+    if constexpr (M > 1) reduce<M / 2, 1, TJ>(y, ig, off);
+  }
+}
+
+// The whole y of one step from the lanes' partials: to y (device memory)
+// or to ys (shared, a row of the chunk's stage).
+template <int HD>
+__device__ __forceinline__ void emit(float (&y)[Shape<HD>::TJ], int ig, int jg, float* out) {
+  using Sh = Shape<HD>;
+  int off = 0;
+  if constexpr (Sh::NIG > 1) reduce<Sh::NIG / 2, Sh::TJ, Sh::TJ>(y, ig, off);
+  if (Sh::TJ >= Sh::NIG || (ig & (Sh::NIG / Sh::TJ - 1)) == 0) {
+    float o[Sh::R];
+#pragma unroll
+    for (int q = 0; q < Sh::R; ++q) o[q] = y[q];
+    st_vec<Sh::R>(out + Sh::col(jg, off), o);
+  }
+}
+
+// One step: y partials (bonus folded in) from the old state, then the
+// state update.  r, k, w point at the thread's first row, v at its first
+// column, of the step's row in the ring; u at its first row.  Rows go
+// four at a time, so that few row values are live at once.
+template <int HD, typename RKV, typename WT, int TI = Shape<HD>::TI, int TJ = Shape<HD>::TJ>
+__device__ __forceinline__ void one_step(float (&s)[TI][TJ], const float* u, const RKV* r,
+                                         const RKV* k, const RKV* v, const WT* w,
+                                         float (&y)[TJ]) {
+  constexpr int RG = TI < 4 ? TI : 4;
+  float vv[TJ];
+  ld_cols<HD>(v, vv);
+#pragma unroll
+  for (int q = 0; q < TJ; ++q) y[q] = 0.f;
+  float bonus = 0.f;
+#pragma unroll
+  for (int i0 = 0; i0 < TI; i0 += RG) {
+    float rr[RG], kk[RG], ww[RG], uu[RG];
+    ld<RG>(r + i0, rr);
+    ld<RG>(k + i0, kk);
+    ld<RG>(w + i0, ww);
+    ld<RG>(u + i0, uu);
+#pragma unroll
+    for (int e = 0; e < RG; ++e) {
+      bonus = fmaf(rr[e] * uu[e], kk[e], bonus);
+#pragma unroll
+      for (int q = 0; q < TJ; ++q) {
+        y[q] = fmaf(rr[e], s[i0 + e][q], y[q]);
+        s[i0 + e][q] = fmaf(ww[e], s[i0 + e][q], kk[e] * vv[q]);
       }
     }
   }
-
-  float* s_out = a.s_out + (int64_t)bh * HD * HD + j;
 #pragma unroll
-  for (int i = 0; i < HD; ++i) s_out[i * HD] = s[i];
+  for (int q = 0; q < TJ; ++q) y[q] = fmaf(vv[q], bonus, y[q]);
+}
+
+// Two steps a, b in one pass over the state (the header's two-step form),
+// rows taken four at a time so that few row factors are live at once.
+template <int HD, typename RKV, typename WT, int TI = Shape<HD>::TI, int TJ = Shape<HD>::TJ>
+__device__ __forceinline__ void two_steps(float (&s)[TI][TJ], const float* u, const RKV* ra,
+                                          const RKV* ka, const RKV* va, const WT* wa,
+                                          int step, float (&ya)[TJ], float (&yb)[TJ]) {
+  constexpr int RG = TI < 4 ? TI : 4;
+  float v_a[TJ], v_b[TJ];
+  ld_cols<HD>(va, v_a);
+  ld_cols<HD>(va + step, v_b);
+#pragma unroll
+  for (int q = 0; q < TJ; ++q) ya[q] = yb[q] = 0.f;
+  float bon_a = 0.f, bon_b = 0.f, cross = 0.f;
+#pragma unroll
+  for (int i0 = 0; i0 < TI; i0 += RG) {
+    float r_a[RG], k_a[RG], w_a[RG], rb[RG], kb[RG], wb[RG], uu[RG];
+    ld<RG>(ra + i0, r_a);
+    ld<RG>(ka + i0, k_a);
+    ld<RG>(wa + i0, w_a);
+    ld<RG>(ra + step + i0, rb);
+    ld<RG>(ka + step + i0, kb);
+    ld<RG>(wa + step + i0, wb);
+    ld<RG>(u + i0, uu);
+#pragma unroll
+    for (int e = 0; e < RG; ++e) {
+      const int i = i0 + e;
+      bon_a = fmaf(r_a[e] * uu[e], k_a[e], bon_a);
+      bon_b = fmaf(rb[e] * uu[e], kb[e], bon_b);
+      cross = fmaf(rb[e], k_a[e], cross);
+      const float rbw = rb[e] * w_a[e], ww = wb[e] * w_a[e], wk = wb[e] * k_a[e];
+#pragma unroll
+      for (int q = 0; q < TJ; ++q) {
+        ya[q] = fmaf(r_a[e], s[i][q], ya[q]);
+        yb[q] = fmaf(rbw, s[i][q], yb[q]);
+        s[i][q] = fmaf(ww, s[i][q], fmaf(wk, v_a[q], kb[e] * v_b[q]));
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < TJ; ++q) {
+    ya[q] = fmaf(v_a[q], bon_a, ya[q]);
+    yb[q] = fmaf(v_a[q], cross, fmaf(v_b[q], bon_b, yb[q]));
+  }
+}
+
+// The barrier a chunk.  What it must order is the group's own (its
+// ring, its y stage); WKV_SYNC picks which other groups it holds in
+// step: 0 the whole block, 1 group g with group g ± G/2 (at G = 8 groups
+// of one warp, the two warps that share an SM sub-partition, so neither
+// runs on alone at the end), 2 none.
+template <int G, int NT>
+__device__ __forceinline__ void chunk_sync(int grp) {
+  if constexpr (WKV_SYNC == 1 && G > 1 && G % 2 == 0) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + grp % (G / 2)), "n"(2 * NT) : "memory");
+  } else if constexpr (WKV_SYNC == 2 && NT == 32) {
+    __syncwarp();
+  } else if constexpr (WKV_SYNC == 2 && G > 1) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + grp), "n"(NT) : "memory");
+  } else {
+    __syncthreads();
+  }
+}
+
+// G (batch, head) pairs a block, NT threads (whole warps) each.
+template <typename RKV, typename WT, int HD, int G>
+__global__ void __launch_bounds__(G * Shape<HD>::NT, WKV_MINB / G > 0 ? WKV_MINB / G : 1)
+    wkv6_kernel(Args a) {
+  using Sh = Shape<HD>;
+  constexpr int TI = Sh::TI, TJ = Sh::TJ, NT = Sh::NT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int grp = threadIdx.x / NT;
+  Smem<RKV, WT, HD>& sm = reinterpret_cast<Smem<RKV, WT, HD>*>(smem_raw)[grp];
+  WKV_MARK(0);
+
+  const int tid = threadIdx.x % NT;
+  const int ig = tid % Sh::NIG, jg = tid / Sh::NIG;
+  const int i0 = ig * TI, j0 = jg * Sh::VW;
+  const int bh = blockIdx.x * G + grp;
+  const bool live = G == 1 || bh < a.BH;  // the last block's spare groups keep step only
+  const int b = bh / a.H, h = bh % a.H;
+  const RKV* rp = static_cast<const RKV*>(a.r) + b * a.sb + h * a.sh;
+  const RKV* kp = static_cast<const RKV*>(a.k) + b * a.sb + h * a.sh;
+  const RKV* vp = static_cast<const RKV*>(a.v) + b * a.sb + h * a.sh;
+  const WT* wp = static_cast<const WT*>(a.w) + b * a.wsb + h * a.wsh;
+  const int nch = (a.T + CT - 1) / CT;
+
+  auto load_chunk = [&](int c) {
+    const int slot = c % S, n = min(CT, a.T - c * CT);
+    const int64_t t0 = static_cast<int64_t>(c) * CT;
+    stage<RKV, HD, NT>(&sm.r[slot][0][0], rp + t0 * a.st, a.st, n, tid, a.vec);
+    stage<RKV, HD, NT>(&sm.k[slot][0][0], kp + t0 * a.st, a.st, n, tid, a.vec);
+    stage<RKV, HD, NT>(&sm.v[slot][0][0], vp + t0 * a.st, a.st, n, tid, a.vec);
+    stage<WT, HD, NT>(&sm.w[slot][0][0], wp + t0 * a.wst, a.wst, n, tid, a.vec);
+  };
+#pragma unroll
+  for (int c = 0; c < S - 1; ++c) {
+    if (live && c < nch) load_chunk(c);
+    cp_commit();
+  }
+
+  // the thread's tile of the state, in flight beside the first chunks
+  float s[TI][TJ];
+  const int64_t tile = static_cast<int64_t>(bh) * HD * HD + i0 * HD;
+#pragma unroll
+  for (int i = 0; i < TI; ++i) {
+    if (!live) {
+#pragma unroll
+      for (int q = 0; q < TJ; ++q) s[i][q] = 0.f;
+    } else if (a.vec) {
+      ld_cols<HD>(a.s_in + tile + i * HD + j0, s[i]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < TJ; ++q) s[i][q] = a.s_in[tile + i * HD + Sh::col(jg, q)];
+    }
+  }
+  if (live)
+    for (int j = tid; j < HD; j += NT) sm.u[j] = a.u[h * HD + j];
+  WKV_MARK(1);
+
+  float* yrow = a.y + (static_cast<int64_t>(b) * a.T * a.H + h) * HD;
+  const int64_t y_st = static_cast<int64_t>(a.H) * HD;
+  for (int c = 0; c < nch; ++c) {
+    WKV_MARK(2);
+    cp_wait<S - 2>();
+    chunk_sync<G, NT>(grp);  // chunk c landed for all; chunk c - 1 consumed by all
+    if (live && c + S - 1 < nch) load_chunk(c + S - 1);
+    cp_commit();
+    WKV_MARK(3);
+    const int slot = c % S, n = min(CT, a.T - c * CT);
+    const int64_t t0 = static_cast<int64_t>(c) * CT;
+#if WKV_YSTAGE
+    if (live && c > 0) {  // chunk c - 1's y, whole since the barrier
+      const int m = min(CT, a.T - (c - 1) * CT);
+      for (int p = tid; p < m * HD / 4; p += NT) {
+        const int cc = p / (HD / 4), e = (p % (HD / 4)) * 4;
+        *reinterpret_cast<float4*>(yrow + (t0 - CT + cc) * y_st + e) =
+            *reinterpret_cast<const float4*>(&sm.y[(c - 1) & 1][cc][e]);
+      }
+    }
+    auto out = [&](int t) { return &sm.y[c & 1][t][0]; };
+#else
+    auto out = [&](int t) { return yrow + (t0 + t) * y_st; };
+#endif
+    int t = live ? 0 : n;
+#if WKV_TWO_STEP
+    for (; t + 1 < n; t += 2) {
+      float ya[TJ], yb[TJ];
+      two_steps<HD>(s, sm.u + i0, &sm.r[slot][t][i0], &sm.k[slot][t][i0],
+                        &sm.v[slot][t][j0], &sm.w[slot][t][i0], HD, ya, yb);
+      emit<HD>(ya, ig, jg, out(t));
+      emit<HD>(yb, ig, jg, out(t + 1));
+    }
+#endif
+#pragma unroll 1
+    for (; t < n; ++t) {
+      float y[TJ];
+      one_step<HD>(s, sm.u + i0, &sm.r[slot][t][i0], &sm.k[slot][t][i0],
+                       &sm.v[slot][t][j0], &sm.w[slot][t][i0], y);
+      emit<HD>(y, ig, jg, out(t));
+    }
+  }
+#if WKV_YSTAGE
+  chunk_sync<G, NT>(grp);  // the last chunk's y
+  if (live) {
+    const int c = nch - 1, m = a.T - c * CT;
+    for (int p = tid; p < m * HD / 4; p += NT) {
+      const int cc = p / (HD / 4), e = (p % (HD / 4)) * 4;
+      *reinterpret_cast<float4*>(yrow + (static_cast<int64_t>(c) * CT + cc) * y_st + e) =
+          *reinterpret_cast<const float4*>(&sm.y[c & 1][cc][e]);
+    }
+  }
+#endif
+  WKV_MARK(4);
+  if (live) {
+#pragma unroll
+    for (int i = 0; i < TI; ++i) {
+      if (a.vec) {
+#pragma unroll
+        for (int q = 0; q < TJ; q += Sh::VW) {
+          float x[Sh::VW];
+#pragma unroll
+          for (int e = 0; e < Sh::VW; ++e) x[e] = s[i][q + e];
+          st_vec<Sh::VW>(a.s_out + tile + i * HD + Sh::col(jg, q), x);
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < TJ; ++q) a.s_out[tile + i * HD + Sh::col(jg, q)] = s[i][q];
+      }
+    }
+  }
+  WKV_MARK(5);
+}
+
+// The kernel for (RKV, WT, HD) as launched for T steps: G = WKV_G pairs
+// a block from T = WKV_G_T up, one pair a block below (a decode step is
+// all state traffic, and 1024 small blocks spread it over every SM).
+template <typename RKV, typename WT, int HD, int G>
+struct Launch {
+  // dynamic shared memory; above 48 KB the kernel is allowed it once
+  static size_t smem() {
+    constexpr size_t bytes = G * sizeof(Smem<RKV, WT, HD>);
+    if constexpr (bytes > 48 * 1024) {
+      static const cudaError_t once = cudaFuncSetAttribute(
+          wkv6_kernel<RKV, WT, HD, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      (void)once;
+    }
+    return bytes;
+  }
+  static cudaError_t run(const Args& a, cudaStream_t s) {
+    const int blocks = (a.BH + G - 1) / G;
+    wkv6_kernel<RKV, WT, HD, G><<<blocks, G * Shape<HD>::NT, smem(), s>>>(a);
+    return cudaSuccess;
+  }
+  static cudaError_t occupancy(int* blocks) {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, wkv6_kernel<RKV, WT, HD, G>, G * Shape<HD>::NT, smem());
+  }
+};
+
+// launch (blocks == nullptr) or query the blocks an SM holds and the
+// pairs a block takes
+template <typename RKV, typename WT, int HD>
+cudaError_t dispatch(const Args& a, cudaStream_t s, int* blocks, int* per_block) {
+  // as many pairs as WKV_G asks and 227 KB of shared memory hold
+  constexpr int G = WKV_G < 232448 / sizeof(Smem<RKV, WT, HD>)
+                        ? WKV_G : static_cast<int>(232448 / sizeof(Smem<RKV, WT, HD>));
+  if (a.T >= WKV_G_T) {
+    if (!blocks) return Launch<RKV, WT, HD, G>::run(a, s);
+    *per_block = G;
+    return Launch<RKV, WT, HD, G>::occupancy(blocks);
+  }
+  if (!blocks) return Launch<RKV, WT, HD, 1>::run(a, s);
+  *per_block = 1;
+  return Launch<RKV, WT, HD, 1>::occupancy(blocks);
 }
 
 template <typename RKV, typename WT>
-cudaError_t launch_hd(const Args& a, int blocks, int hd, cudaStream_t s) {
+cudaError_t by_hd(const Args& a, int hd, cudaStream_t s, int* blocks, int* per_block) {
   switch (hd) {
-    case 16: wkv6_kernel<RKV, WT, 16><<<blocks, 16, 0, s>>>(a); break;
-    case 32: wkv6_kernel<RKV, WT, 32><<<blocks, 32, 0, s>>>(a); break;
-    case 64: wkv6_kernel<RKV, WT, 64><<<blocks, 64, 0, s>>>(a); break;
+    case 16: return dispatch<RKV, WT, 16>(a, s, blocks, per_block);
+    case 32: return dispatch<RKV, WT, 32>(a, s, blocks, per_block);
+    case 64: return dispatch<RKV, WT, 64>(a, s, blocks, per_block);
     default: return cudaErrorInvalidValue;
   }
-  return cudaSuccess;
 }
 
-template <typename RKV>
-cudaError_t launch_w(const Args& a, int w_dtype, int blocks, int hd, cudaStream_t s) {
-  if (w_dtype == 0) return launch_hd<RKV, float>(a, blocks, hd, s);
-  if (w_dtype == 1) return launch_hd<RKV, __nv_bfloat16>(a, blocks, hd, s);
+cudaError_t by_dtype(const Args& a, int rkv_dtype, int w_dtype, int hd, cudaStream_t s,
+                     int* blocks = nullptr, int* per_block = nullptr) {
+  using bf16 = __nv_bfloat16;
+  if (rkv_dtype == 0 && w_dtype == 0) return by_hd<float, float>(a, hd, s, blocks, per_block);
+  if (rkv_dtype == 0 && w_dtype == 1) return by_hd<float, bf16>(a, hd, s, blocks, per_block);
+  if (rkv_dtype == 1 && w_dtype == 0) return by_hd<bf16, float>(a, hd, s, blocks, per_block);
+  if (rkv_dtype == 1 && w_dtype == 1) return by_hd<bf16, bf16>(a, hd, s, blocks, per_block);
   return cudaErrorInvalidValue;
+}
+
+bool aligned16(const void* p, int64_t s0, int64_t s1, int64_t s2, int elem) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (s0 * elem) % 16 == 0 &&
+         (s1 * elem) % 16 == 0 && (s2 * elem) % 16 == 0;
 }
 
 }  // namespace
@@ -176,11 +597,22 @@ extern "C" int repro_wkv6(const void* r, const void* k, const void* v, int rkv_d
                           int hd, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B < 1 || T < 1 || H < 1) return (int)cudaErrorInvalidValue;
-  const Args a{r, k, v, sb, st, sh, w, wsb, wst, wsh, u, s_in, s_out, y, T, H};
-  const int blocks = B * H;
-  cudaError_t err = rkv_dtype == 0 ? launch_w<float>(a, w_dtype, blocks, hd, s)
-                  : rkv_dtype == 1 ? launch_w<__nv_bfloat16>(a, w_dtype, blocks, hd, s)
-                                   : cudaErrorInvalidValue;
+  const int re = rkv_dtype == 0 ? 4 : 2, we = w_dtype == 0 ? 4 : 2;
+  const bool vec = aligned16(r, sb, st, sh, re) && aligned16(k, sb, st, sh, re) &&
+                   aligned16(v, sb, st, sh, re) && aligned16(w, wsb, wst, wsh, we) &&
+                   aligned16(s_in, 0, 0, 0, 4) && aligned16(s_out, 0, 0, 0, 4);
+  const Args a{r, k, v, sb, st, sh, w, wsb, wst, wsh, u, s_in, s_out, y, T, H, B * H, vec};
+  const cudaError_t err = by_dtype(a, rkv_dtype, w_dtype, hd, s);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// For the kernel that (rkv_dtype, w_dtype, hd) at T steps launches: the
+// blocks one SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+// into *blocks, the (batch, head) pairs a block takes into *per_block.
+extern "C" int repro_wkv6_blocks_per_sm(int rkv_dtype, int w_dtype, int hd, int T, int* blocks,
+                                        int* per_block) {
+  Args a{};
+  a.T = T;
+  return (int)by_dtype(a, rkv_dtype, w_dtype, hd, nullptr, blocks, per_block);
 }

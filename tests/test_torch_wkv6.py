@@ -24,16 +24,23 @@ ATOL = 1e-4
 SWEEP = [(2, 64, 2, 16, 16), (1, 128, 4, 32, 64), (2, 32, 1, 64, 32)]
 
 
-def _inputs(B, T, H, hd, seed, *, state=False, rkv_dtype="float32"):
+def _inputs(B, T, H, hd, seed, *, state=False, rkv_dtype="float32",
+            decay="reference"):
     """r, k, v, w, u, state as numpy, drawn as the reference's tests draw
     them (w in (0.5, 1)); bf16 r/k/v are rounded once, by jax, so both
-    packages see the same values."""
+    packages see the same values.  ``decay="model"`` draws w as the model
+    makes it, exp(-exp(x)) with x uniform in [-6, 3]: from ~2e-9, which
+    all but wipes the state in one step, to ~0.9975."""
     rng = np.random.default_rng(seed)
     r = rng.normal(size=(B, T, H, hd)).astype(np.float32) * 0.5
     k = rng.normal(size=(B, T, H, hd)).astype(np.float32) * 0.5
     v = rng.normal(size=(B, T, H, hd)).astype(np.float32)
-    w = (1 / (1 + np.exp(-rng.normal(size=(B, T, H, hd))))).astype(
-        np.float32) * 0.5 + 0.5
+    if decay == "model":
+        x = rng.uniform(-6.0, 3.0, size=(B, T, H, hd))
+        w = np.exp(-np.exp(x)).astype(np.float32)
+    else:
+        w = (1 / (1 + np.exp(-rng.normal(size=(B, T, H, hd))))).astype(
+            np.float32) * 0.5 + 0.5
     u = rng.normal(size=(H, hd)).astype(np.float32) * 0.1
     s0 = (rng.normal(size=(B, H, hd, hd)).astype(np.float32) * 0.1 if state
           else np.zeros((B, H, hd, hd), np.float32))
@@ -119,6 +126,19 @@ def test_wkv6_bf16_rkv_fp32_w():
     _close(s.numpy(), s_o)
 
 
+@pytest.mark.parametrize("hd", [16, 64])
+def test_wkv6_plain_matches_reference_on_the_model_decay(hd):
+    """The model's own decay distribution, w = exp(-exp(x)): some channels
+    keep the state, others wipe it in one step (fp32, T = 37)."""
+    r, k, v, w, u, s0 = _inputs(2, 37, 2, hd, 37 + hd, state=True,
+                                decay="model")
+    assert w.min() < 1e-8 and w.max() > 0.99
+    y, s = t_ops.wkv6(*map(_t, (r, k, v, w, u, s0)))
+    y_o, s_o = r_ref.wkv6(*map(_j, (r, k, v, w, u, s0)))
+    _close(y.numpy(), y_o)
+    _close(s.numpy(), s_o)
+
+
 def test_wkv6_state_out_may_alias_state():
     r, k, v, w, u, s0 = _inputs(2, 9, 2, 16, 4, state=True)
     want_y, want_s = t_ops.wkv6(*map(_t, (r, k, v, w, u, s0)))
@@ -155,6 +175,13 @@ def test_kernel_checks_shapes_before_launch():
     with pytest.raises(TypeError, match="float32 and bfloat16"):
         t_kernel.check(r, k, v, w.half(), u, s0, None)
     assert t_kernel.HEAD_DIMS == (16, 32, 64)
+
+
+def test_occupancy_query_refuses_other_head_dims():
+    """The residency query names the head dims the kernel is built for,
+    before any library is built or loaded."""
+    with pytest.raises(ValueError, match="head dim"):
+        t_kernel.blocks_per_sm(torch.bfloat16, torch.float32, 48, 1024)
 
 
 # -- the hand-written kernel, on the card ------------------------------------------
@@ -195,3 +222,60 @@ def test_wkv6_kernel_state_carry_and_alias(cuda):
                                atol=ATOL, rtol=1e-5)
     torch.testing.assert_close(state.cpu(), s_p, atol=ATOL, rtol=1e-5)
     _kernel_vs_plain(cuda, r, k, v, w, u, s0, alias=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("rkv_dtype", ["float32", "bfloat16"])
+def test_wkv6_kernel_on_the_model_decay(cuda, hd, rkv_dtype):
+    arrays = _inputs(2, 37, 2, hd, 5 + hd, state=True, rkv_dtype=rkv_dtype,
+                     decay="model")
+    _kernel_vs_plain(cuda, *map(_t, arrays))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [15, 17, 33])
+@pytest.mark.parametrize("hd", [16, 32, 64])
+def test_wkv6_kernel_ragged_last_chunk(cuda, T, hd):
+    """T that ends inside a chunk of the ring, after one or two whole ones."""
+    arrays = _inputs(2, T, 2, hd, T * hd, state=True, rkv_dtype="bfloat16",
+                     decay="model")
+    _kernel_vs_plain(cuda, *map(_t, arrays))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 33])
+def test_wkv6_kernel_state_out_aliases_state(cuda, T):
+    arrays = _inputs(2, T, 4, 64, T + 3, state=True, rkv_dtype="bfloat16",
+                     decay="model")
+    _kernel_vs_plain(cuda, *map(_t, arrays), alias=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rkv_dtype", ["float32", "bfloat16"])
+def test_wkv6_kernel_takes_unaligned_views(cuda, rkv_dtype):
+    """r, k, v, w one element into a wider buffer: not 16-byte aligned,
+    so the ring copies them element by element."""
+    r, k, v, w, u, s0 = map(_t, _inputs(2, 33, 2, 64, 9, state=True,
+                                        rkv_dtype=rkv_dtype, decay="model"))
+    views = []
+    for a in (r, k, v, w):
+        wide = torch.zeros((2, 33, 2, 66), dtype=a.dtype, device=cuda)
+        wide[..., 1:65] = a.to(cuda)
+        views.append(wide[..., 1:65])
+    assert views[0].data_ptr() % 16 != 0
+    y, s = t_ops.wkv6(*views, u.to(cuda), s0.to(cuda))
+    y_p, s_p = t_ref.wkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.cpu(), y_p, atol=ATOL, rtol=1e-5)
+    torch.testing.assert_close(s.cpu(), s_p, atol=ATOL, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_fills_the_card_in_one_wave(cuda):
+    """At the rwkv slice's prefill shape every (batch, head) pair is
+    resident at once: 16 x 64 pairs over the card's SMs."""
+    blocks, per_block = t_kernel.blocks_per_sm(torch.bfloat16, torch.float32,
+                                               64, 1024)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert blocks * per_block * sms >= 16 * 64
