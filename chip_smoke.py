@@ -1404,6 +1404,7 @@ def phase_wkv6(stats: dict) -> None:
         err = check_wkv(*_wkv_inputs(g, B, t, H, hd, bf16), alias=True)
         worst = max(worst, err)
         log(f"phase7/wkv6/alias/B{B}xT{t}xH{H}xhd{hd},max_abs_err={err:.3g}")
+    per_sm = kernel.blocks_per_sm(bf16, f32, hd)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for t, label in ((T, "prefill"), (1, "decode")):
         # At T = 1 the state (16.8 MB in, 16.8 MB out) would stay in the
@@ -1424,15 +1425,13 @@ def phase_wkv6(stats: dict) -> None:
         p_ms = time_ms(lambda: call(ref.wkv6), iters=2 if t > 1 else 12,
                        warmup=1, queue_ahead=True)
         bound, bound_by = wkv_bound(sets[0][0], sets[0][3])
-        per_sm, per_block = kernel.blocks_per_sm(bf16, f32, hd, t)
         if label == "prefill":  # the kernels line's shape
             stats["wkv"] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
                             "bound_by": bound_by}
         log(f"phase7/wkv6/{label}_shape,B{B}xT{t}xH{H}xhd{hd},ms={k_ms:.4f},"
             f"plain_ms={p_ms:.4f},bound_ms={bound:.4f},bound_by={bound_by},"
             f"bound_share={bound / k_ms:.3f},library_ms=none,"
-            f"pairs={B * H},pairs_per_block={per_block},"
-            f"resident_blocks_per_sm={per_sm},sms={sms}")
+            f"blocks={B * H},resident_blocks_per_sm={per_sm},sms={sms}")
     log(f"phase7/wkv6/sweep,cases={len(cases) + 6},max_abs_err={worst:.3g}")
     stats["wkv"]["err"] = worst
     ops.LAUNCHES.reset()

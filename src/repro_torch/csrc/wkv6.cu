@@ -64,28 +64,22 @@
 #define WKV_TJ 8
 #endif
 #ifndef WKV_CT
-#define WKV_CT 16
+#define WKV_CT 8
 #endif
 #ifndef WKV_S
-#define WKV_S 2
+#define WKV_S 4
 #endif
 #ifndef WKV_MINB
 #define WKV_MINB 8
 #endif
-#ifndef WKV_G
-#define WKV_G 8
-#endif
-#ifndef WKV_G_T
-#define WKV_G_T 2
-#endif
-#ifndef WKV_SYNC
-#define WKV_SYNC 1
-#endif
 #ifndef WKV_TWO_STEP
-#define WKV_TWO_STEP 0
+#define WKV_TWO_STEP 1
 #endif
 #ifndef WKV_YSTAGE
 #define WKV_YSTAGE 0
+#endif
+#ifndef WKV_SPREAD
+#define WKV_SPREAD 0
 #endif
 #ifndef WKV_MARK
 #define WKV_MARK(k)
@@ -116,6 +110,10 @@ template <int HD> struct Shape {
   static constexpr int VW = TJ < 4 ? TJ : 4;    // columns a piece
   static constexpr int PS = VW * NJG;           // columns from piece to piece
   static constexpr int R = TJ >= NIG ? TJ / NIG : 1;  // y values a lane stores
+  // bonus rows a lane sums when the column groups of a warp split a row
+  // group's TI rows (TI · NIG = HD rows over 32 lanes); 0: each its own
+  static constexpr int RB = HD >= 32 ? HD / 32 : 0;
+  static constexpr int UB = RB > 0 ? RB : TI;  // bonus rows a thread sums
   static_assert(HD % TI == 0 && HD % TJ == 0 && TJ % VW == 0, "tile");
   static_assert(NIG <= 32 && 32 % NIG == 0 && NT % 32 == 0, "lanes");
   static_assert(R <= VW, "a lane's y values lie in one piece");
@@ -143,7 +141,6 @@ struct Args {
 template <typename RKV, typename WT, int HD> struct Smem {
   RKV r[S][CT][HD], k[S][CT][HD], v[S][CT][HD];
   WT w[S][CT][HD];
-  float u[HD];
 #if WKV_YSTAGE
   float y[2][CT][HD];
 #endif
@@ -176,6 +173,21 @@ __device__ __forceinline__ void stage(E* dst, const E* src, int64_t st, int n, i
   }
 }
 
+// Stage one step of one input (HD values at src) into dst.
+template <typename E, int HD, int NT>
+__device__ __forceinline__ void stage_step(E* dst, const E* src, int tid, bool vec) {
+  constexpr int PER = 16 / sizeof(E);
+  if (vec) {
+#pragma unroll
+    for (int q = 0; q < (HD / PER + NT - 1) / NT; ++q) {
+      const int p = tid + q * NT;
+      if (p < HD / PER) cp16(dst + p * PER, src + p * PER);
+    }
+  } else {
+    for (int e = tid; e < HD; e += NT) dst[e] = src[e];
+  }
+}
+
 __device__ __forceinline__ float lo(uint32_t x) { return __uint_as_float(x << 16); }
 __device__ __forceinline__ float hi(uint32_t x) { return __uint_as_float(x & 0xffff0000u); }
 
@@ -189,12 +201,15 @@ __device__ __forceinline__ void ld(const float* p, float (&o)[N]) {
       const float4 x = *reinterpret_cast<const float4*>(p + q);
       o[q] = x.x; o[q + 1] = x.y; o[q + 2] = x.z; o[q + 3] = x.w;
     }
-  } else {
+  } else if constexpr (N % 2 == 0) {
 #pragma unroll
     for (int q = 0; q < N; q += 2) {
       const float2 x = *reinterpret_cast<const float2*>(p + q);
       o[q] = x.x; o[q + 1] = x.y;
     }
+  } else {
+#pragma unroll
+    for (int q = 0; q < N; ++q) o[q] = p[q];
   }
 }
 template <int N>
@@ -212,12 +227,15 @@ __device__ __forceinline__ void ld(const __nv_bfloat16* p, float (&o)[N]) {
       const uint2 x = *reinterpret_cast<const uint2*>(p + q);
       o[q] = lo(x.x); o[q + 1] = hi(x.x); o[q + 2] = lo(x.y); o[q + 3] = hi(x.y);
     }
-  } else {
+  } else if constexpr (N % 2 == 0) {
 #pragma unroll
     for (int q = 0; q < N; q += 2) {
       const uint32_t x = *reinterpret_cast<const uint32_t*>(p + q);
       o[q] = lo(x); o[q + 1] = hi(x);
     }
+  } else {
+#pragma unroll
+    for (int q = 0; q < N; ++q) o[q] = lo(*reinterpret_cast<const uint16_t*>(p + q));
   }
 }
 
@@ -286,120 +304,126 @@ __device__ __forceinline__ void emit(float (&y)[Shape<HD>::TJ], int ig, int jg, 
   }
 }
 
-// One step: y partials (bonus folded in) from the old state, then the
-// state update.  r, k, w point at the thread's first row, v at its first
-// column, of the step's row in the ring; u at its first row.  Rows go
-// four at a time, so that few row values are live at once.
+// Bonus terms of a step for the thread's row group: out[n] = sum over
+// rows of a_n · b_n, times u where bit n of WITH_U is set.  Where a
+// warp's column groups can split the group's TI rows (RB > 0), each lane
+// sums its RB rows (a_n, b_n point at them; u holds their u) and the
+// warp adds the lanes of its column groups; otherwise each thread sums
+// all TI rows.
+template <int HD, int N, int WITH_U, typename RKV>
+__device__ __forceinline__ void bonus_terms(const RKV* const (&a)[N], const RKV* const (&b)[N],
+                                            const float (&u)[Shape<HD>::UB], float (&out)[N]) {
+  using Sh = Shape<HD>;
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    float x[Sh::UB], y[Sh::UB];
+    ld<Sh::UB>(a[n], x);
+    ld<Sh::UB>(b[n], y);
+    out[n] = 0.f;
+#pragma unroll
+    for (int e = 0; e < Sh::UB; ++e)
+      out[n] = fmaf((WITH_U >> n) & 1 ? x[e] * u[e] : x[e], y[e], out[n]);
+  }
+  if constexpr (Sh::RB > 0) {
+#pragma unroll
+    for (int m = Sh::NIG; m < 32; m *= 2)
+#pragma unroll
+      for (int n = 0; n < N; ++n) out[n] += __shfl_xor_sync(0xffffffffu, out[n], m);
+  }
+}
+
+// One step: y partials from the old state and the bonus, then the state
+// update.  r, k, w point at the thread's first row, v at its first
+// column, of the step's row in the ring; `bo` is the offset of the rows
+// whose bonus the lane sums and u holds their u.  Rows go four at a
+// time, so that few row values are live at once.
 template <int HD, typename RKV, typename WT, int TI = Shape<HD>::TI, int TJ = Shape<HD>::TJ>
-__device__ __forceinline__ void one_step(float (&s)[TI][TJ], const float* u, const RKV* r,
-                                         const RKV* k, const RKV* v, const WT* w,
+__device__ __forceinline__ void one_step(float (&s)[TI][TJ], const float (&u)[Shape<HD>::UB], int bo,
+                                         const RKV* r, const RKV* k, const RKV* v, const WT* w,
                                          float (&y)[TJ]) {
   constexpr int RG = TI < 4 ? TI : 4;
+  float bonus[1];
+  bonus_terms<HD, 1, 1, RKV>({r + bo}, {k + bo}, u, bonus);
   float vv[TJ];
   ld_cols<HD>(v, vv);
 #pragma unroll
   for (int q = 0; q < TJ; ++q) y[q] = 0.f;
-  float bonus = 0.f;
 #pragma unroll
   for (int i0 = 0; i0 < TI; i0 += RG) {
-    float rr[RG], kk[RG], ww[RG], uu[RG];
+    float rr[RG], kk[RG], ww[RG];
     ld<RG>(r + i0, rr);
     ld<RG>(k + i0, kk);
     ld<RG>(w + i0, ww);
-    ld<RG>(u + i0, uu);
 #pragma unroll
-    for (int e = 0; e < RG; ++e) {
-      bonus = fmaf(rr[e] * uu[e], kk[e], bonus);
+    for (int e = 0; e < RG; ++e)
 #pragma unroll
       for (int q = 0; q < TJ; ++q) {
         y[q] = fmaf(rr[e], s[i0 + e][q], y[q]);
         s[i0 + e][q] = fmaf(ww[e], s[i0 + e][q], kk[e] * vv[q]);
       }
-    }
   }
+  // the bonus last: its sum over lanes is then off the path of the FMAs
 #pragma unroll
-  for (int q = 0; q < TJ; ++q) y[q] = fmaf(vv[q], bonus, y[q]);
+  for (int q = 0; q < TJ; ++q) y[q] = fmaf(vv[q], bonus[0], y[q]);
 }
 
-// Two steps a, b in one pass over the state (the header's two-step form),
-// rows taken four at a time so that few row factors are live at once.
+// Two steps a, b in one pass over the state (the header's two-step form).
+// `step` is the distance from a step's row to the next in the ring.
 template <int HD, typename RKV, typename WT, int TI = Shape<HD>::TI, int TJ = Shape<HD>::TJ>
-__device__ __forceinline__ void two_steps(float (&s)[TI][TJ], const float* u, const RKV* ra,
-                                          const RKV* ka, const RKV* va, const WT* wa,
-                                          int step, float (&ya)[TJ], float (&yb)[TJ]) {
+__device__ __forceinline__ void two_steps(float (&s)[TI][TJ], const float (&u)[Shape<HD>::UB], int bo,
+                                          const RKV* ra, const RKV* ka, const RKV* va,
+                                          const WT* wa, int step, float (&ya)[TJ],
+                                          float (&yb)[TJ]) {
   constexpr int RG = TI < 4 ? TI : 4;
+  const RKV* rb = ra + step;
+  const RKV* kb = ka + step;
+  float bon[3];  // r_a·u·k_a, r_b·u·k_b, r_b·k_a
+  bonus_terms<HD, 3, 0b011, RKV>({ra + bo, rb + bo, rb + bo}, {ka + bo, kb + bo, ka + bo}, u,
+                                 bon);
   float v_a[TJ], v_b[TJ];
   ld_cols<HD>(va, v_a);
   ld_cols<HD>(va + step, v_b);
 #pragma unroll
   for (int q = 0; q < TJ; ++q) ya[q] = yb[q] = 0.f;
-  float bon_a = 0.f, bon_b = 0.f, cross = 0.f;
 #pragma unroll
   for (int i0 = 0; i0 < TI; i0 += RG) {
-    float r_a[RG], k_a[RG], w_a[RG], rb[RG], kb[RG], wb[RG], uu[RG];
+    float r_a[RG], k_a[RG], w_a[RG], r_b[RG], k_b[RG], w_b[RG];
     ld<RG>(ra + i0, r_a);
     ld<RG>(ka + i0, k_a);
     ld<RG>(wa + i0, w_a);
-    ld<RG>(ra + step + i0, rb);
-    ld<RG>(ka + step + i0, kb);
-    ld<RG>(wa + step + i0, wb);
-    ld<RG>(u + i0, uu);
+    ld<RG>(rb + i0, r_b);
+    ld<RG>(kb + i0, k_b);
+    ld<RG>(wa + step + i0, w_b);
 #pragma unroll
     for (int e = 0; e < RG; ++e) {
-      const int i = i0 + e;
-      bon_a = fmaf(r_a[e] * uu[e], k_a[e], bon_a);
-      bon_b = fmaf(rb[e] * uu[e], kb[e], bon_b);
-      cross = fmaf(rb[e], k_a[e], cross);
-      const float rbw = rb[e] * w_a[e], ww = wb[e] * w_a[e], wk = wb[e] * k_a[e];
+      const float rbw = r_b[e] * w_a[e], ww = w_b[e] * w_a[e], wk = w_b[e] * k_a[e];
 #pragma unroll
       for (int q = 0; q < TJ; ++q) {
-        ya[q] = fmaf(r_a[e], s[i][q], ya[q]);
-        yb[q] = fmaf(rbw, s[i][q], yb[q]);
-        s[i][q] = fmaf(ww, s[i][q], fmaf(wk, v_a[q], kb[e] * v_b[q]));
+        ya[q] = fmaf(r_a[e], s[i0 + e][q], ya[q]);
+        yb[q] = fmaf(rbw, s[i0 + e][q], yb[q]);
+        s[i0 + e][q] = fmaf(ww, s[i0 + e][q], fmaf(wk, v_a[q], k_b[e] * v_b[q]));
       }
     }
   }
 #pragma unroll
   for (int q = 0; q < TJ; ++q) {
-    ya[q] = fmaf(v_a[q], bon_a, ya[q]);
-    yb[q] = fmaf(v_a[q], cross, fmaf(v_b[q], bon_b, yb[q]));
+    ya[q] = fmaf(v_a[q], bon[0], ya[q]);
+    yb[q] = fmaf(v_a[q], bon[2], fmaf(v_b[q], bon[1], yb[q]));
   }
 }
 
-// The barrier a chunk.  What it must order is the group's own (its
-// ring, its y stage); WKV_SYNC picks which other groups it holds in
-// step: 0 the whole block, 1 group g with group g ± G/2 (at G = 8 groups
-// of one warp, the two warps that share an SM sub-partition, so neither
-// runs on alone at the end), 2 none.
-template <int G, int NT>
-__device__ __forceinline__ void chunk_sync(int grp) {
-  if constexpr (WKV_SYNC == 1 && G > 1 && G % 2 == 0) {
-    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + grp % (G / 2)), "n"(2 * NT) : "memory");
-  } else if constexpr (WKV_SYNC == 2 && NT == 32) {
-    __syncwarp();
-  } else if constexpr (WKV_SYNC == 2 && G > 1) {
-    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + grp), "n"(NT) : "memory");
-  } else {
-    __syncthreads();
-  }
-}
-
-// G (batch, head) pairs a block, NT threads (whole warps) each.
-template <typename RKV, typename WT, int HD, int G>
-__global__ void __launch_bounds__(G * Shape<HD>::NT, WKV_MINB / G > 0 ? WKV_MINB / G : 1)
-    wkv6_kernel(Args a) {
+template <typename RKV, typename WT, int HD>
+__global__ void __launch_bounds__(Shape<HD>::NT, WKV_MINB) wkv6_kernel(Args a) {
   using Sh = Shape<HD>;
   constexpr int TI = Sh::TI, TJ = Sh::TJ, NT = Sh::NT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int grp = threadIdx.x / NT;
-  Smem<RKV, WT, HD>& sm = reinterpret_cast<Smem<RKV, WT, HD>*>(smem_raw)[grp];
+  Smem<RKV, WT, HD>& sm = *reinterpret_cast<Smem<RKV, WT, HD>*>(smem_raw);
   WKV_MARK(0);
 
-  const int tid = threadIdx.x % NT;
+  const int tid = threadIdx.x;
   const int ig = tid % Sh::NIG, jg = tid / Sh::NIG;
   const int i0 = ig * TI, j0 = jg * Sh::VW;
-  const int bh = blockIdx.x * G + grp;
-  const bool live = G == 1 || bh < a.BH;  // the last block's spare groups keep step only
+  const int bh = blockIdx.x;
   const int b = bh / a.H, h = bh % a.H;
   const RKV* rp = static_cast<const RKV*>(a.r) + b * a.sb + h * a.sh;
   const RKV* kp = static_cast<const RKV*>(a.k) + b * a.sb + h * a.sh;
@@ -415,9 +439,19 @@ __global__ void __launch_bounds__(G * Shape<HD>::NT, WKV_MINB / G > 0 ? WKV_MINB
     stage<RKV, HD, NT>(&sm.v[slot][0][0], vp + t0 * a.st, a.st, n, tid, a.vec);
     stage<WT, HD, NT>(&sm.w[slot][0][0], wp + t0 * a.wst, a.wst, n, tid, a.vec);
   };
+  // step t of chunk c, for copies spread over the steps of a chunk
+  auto load_step = [&](int c, int t) {
+    const int slot = c % S;
+    const int64_t tt = static_cast<int64_t>(c) * CT + t;
+    stage_step<RKV, HD, NT>(&sm.r[slot][t][0], rp + tt * a.st, tid, a.vec);
+    stage_step<RKV, HD, NT>(&sm.k[slot][t][0], kp + tt * a.st, tid, a.vec);
+    stage_step<RKV, HD, NT>(&sm.v[slot][t][0], vp + tt * a.st, tid, a.vec);
+    stage_step<WT, HD, NT>(&sm.w[slot][t][0], wp + tt * a.wst, tid, a.vec);
+  };
+  (void)load_step;
 #pragma unroll
   for (int c = 0; c < S - 1; ++c) {
-    if (live && c < nch) load_chunk(c);
+    if (c < nch) load_chunk(c);
     cp_commit();
   }
 
@@ -426,18 +460,18 @@ __global__ void __launch_bounds__(G * Shape<HD>::NT, WKV_MINB / G > 0 ? WKV_MINB
   const int64_t tile = static_cast<int64_t>(bh) * HD * HD + i0 * HD;
 #pragma unroll
   for (int i = 0; i < TI; ++i) {
-    if (!live) {
-#pragma unroll
-      for (int q = 0; q < TJ; ++q) s[i][q] = 0.f;
-    } else if (a.vec) {
+    if (a.vec) {
       ld_cols<HD>(a.s_in + tile + i * HD + j0, s[i]);
     } else {
 #pragma unroll
       for (int q = 0; q < TJ; ++q) s[i][q] = a.s_in[tile + i * HD + Sh::col(jg, q)];
     }
   }
-  if (live)
-    for (int j = tid; j < HD; j += NT) sm.u[j] = a.u[h * HD + j];
+  // the rows whose bonus terms the lane sums, and their u
+  const int bo = Sh::RB > 0 ? (jg % (32 / Sh::NIG)) * Sh::RB : 0;
+  float u[Sh::UB];
+#pragma unroll
+  for (int e = 0; e < Sh::UB; ++e) u[e] = a.u[h * HD + i0 + bo + e];
   WKV_MARK(1);
 
   float* yrow = a.y + (static_cast<int64_t>(b) * a.T * a.H + h) * HD;
@@ -445,16 +479,19 @@ __global__ void __launch_bounds__(G * Shape<HD>::NT, WKV_MINB / G > 0 ? WKV_MINB
   for (int c = 0; c < nch; ++c) {
     WKV_MARK(2);
     cp_wait<S - 2>();
-    chunk_sync<G, NT>(grp);  // chunk c landed for all; chunk c - 1 consumed by all
-    if (live && c + S - 1 < nch) load_chunk(c + S - 1);
-    cp_commit();
+    __syncthreads();  // chunk c landed for all; chunk c - 1 consumed by all
     WKV_MARK(3);
+    // chunk c + S - 1 goes into the slot chunk c - 1 left: at once, or
+    // (WKV_SPREAD) a step of it beside each step of chunk c
+    const int ahead = c + S - 1 < nch ? min(CT, a.T - (c + S - 1) * CT) : 0;
+    if (!WKV_SPREAD && ahead) load_chunk(c + S - 1);
+    if (!WKV_SPREAD) cp_commit();
+    WKV_MARK(4);
     const int slot = c % S, n = min(CT, a.T - c * CT);
     const int64_t t0 = static_cast<int64_t>(c) * CT;
 #if WKV_YSTAGE
-    if (live && c > 0) {  // chunk c - 1's y, whole since the barrier
-      const int m = min(CT, a.T - (c - 1) * CT);
-      for (int p = tid; p < m * HD / 4; p += NT) {
+    if (c > 0) {  // chunk c - 1's y, whole since the barrier
+      for (int p = tid; p < CT * HD / 4; p += NT) {
         const int cc = p / (HD / 4), e = (p % (HD / 4)) * 4;
         *reinterpret_cast<float4*>(yrow + (t0 - CT + cc) * y_st + e) =
             *reinterpret_cast<const float4*>(&sm.y[(c - 1) & 1][cc][e]);
@@ -464,27 +501,31 @@ __global__ void __launch_bounds__(G * Shape<HD>::NT, WKV_MINB / G > 0 ? WKV_MINB
 #else
     auto out = [&](int t) { return yrow + (t0 + t) * y_st; };
 #endif
-    int t = live ? 0 : n;
+    int t = 0;
 #if WKV_TWO_STEP
     for (; t + 1 < n; t += 2) {
+      if (WKV_SPREAD && t < ahead) load_step(c + S - 1, t);
+      if (WKV_SPREAD && t + 1 < ahead) load_step(c + S - 1, t + 1);
       float ya[TJ], yb[TJ];
-      two_steps<HD>(s, sm.u + i0, &sm.r[slot][t][i0], &sm.k[slot][t][i0],
-                        &sm.v[slot][t][j0], &sm.w[slot][t][i0], HD, ya, yb);
+      two_steps<HD>(s, u, bo, &sm.r[slot][t][i0], &sm.k[slot][t][i0], &sm.v[slot][t][j0],
+                    &sm.w[slot][t][i0], HD, ya, yb);
       emit<HD>(ya, ig, jg, out(t));
       emit<HD>(yb, ig, jg, out(t + 1));
     }
 #endif
 #pragma unroll 1
     for (; t < n; ++t) {
+      if (WKV_SPREAD && t < ahead) load_step(c + S - 1, t);
       float y[TJ];
-      one_step<HD>(s, sm.u + i0, &sm.r[slot][t][i0], &sm.k[slot][t][i0],
-                       &sm.v[slot][t][j0], &sm.w[slot][t][i0], y);
+      one_step<HD>(s, u, bo, &sm.r[slot][t][i0], &sm.k[slot][t][i0], &sm.v[slot][t][j0],
+                   &sm.w[slot][t][i0], y);
       emit<HD>(y, ig, jg, out(t));
     }
+    if (WKV_SPREAD) cp_commit();
   }
 #if WKV_YSTAGE
-  chunk_sync<G, NT>(grp);  // the last chunk's y
-  if (live) {
+  __syncthreads();  // the last chunk's y
+  {
     const int c = nch - 1, m = a.T - c * CT;
     for (int p = tid; p < m * HD / 4; p += NT) {
       const int cc = p / (HD / 4), e = (p % (HD / 4)) * 4;
@@ -493,87 +534,65 @@ __global__ void __launch_bounds__(G * Shape<HD>::NT, WKV_MINB / G > 0 ? WKV_MINB
     }
   }
 #endif
-  WKV_MARK(4);
-  if (live) {
+  WKV_MARK(5);
 #pragma unroll
-    for (int i = 0; i < TI; ++i) {
-      if (a.vec) {
+  for (int i = 0; i < TI; ++i) {
+    if (a.vec) {
 #pragma unroll
-        for (int q = 0; q < TJ; q += Sh::VW) {
-          float x[Sh::VW];
+      for (int q = 0; q < TJ; q += Sh::VW) {
+        float x[Sh::VW];
 #pragma unroll
-          for (int e = 0; e < Sh::VW; ++e) x[e] = s[i][q + e];
-          st_vec<Sh::VW>(a.s_out + tile + i * HD + Sh::col(jg, q), x);
-        }
-      } else {
-#pragma unroll
-        for (int q = 0; q < TJ; ++q) a.s_out[tile + i * HD + Sh::col(jg, q)] = s[i][q];
+        for (int e = 0; e < Sh::VW; ++e) x[e] = s[i][q + e];
+        st_vec<Sh::VW>(a.s_out + tile + i * HD + Sh::col(jg, q), x);
       }
+    } else {
+#pragma unroll
+      for (int q = 0; q < TJ; ++q) a.s_out[tile + i * HD + Sh::col(jg, q)] = s[i][q];
     }
   }
-  WKV_MARK(5);
+  WKV_MARK(6);
 }
 
-// The kernel for (RKV, WT, HD) as launched for T steps: G = WKV_G pairs
-// a block from T = WKV_G_T up, one pair a block below (a decode step is
-// all state traffic, and 1024 small blocks spread it over every SM).
-template <typename RKV, typename WT, int HD, int G>
-struct Launch {
-  // dynamic shared memory; above 48 KB the kernel is allowed it once
-  static size_t smem() {
-    constexpr size_t bytes = G * sizeof(Smem<RKV, WT, HD>);
-    if constexpr (bytes > 48 * 1024) {
-      static const cudaError_t once = cudaFuncSetAttribute(
-          wkv6_kernel<RKV, WT, HD, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-      (void)once;
-    }
-    return bytes;
-  }
-  static cudaError_t run(const Args& a, cudaStream_t s) {
-    const int blocks = (a.BH + G - 1) / G;
-    wkv6_kernel<RKV, WT, HD, G><<<blocks, G * Shape<HD>::NT, smem(), s>>>(a);
-    return cudaSuccess;
-  }
-  static cudaError_t occupancy(int* blocks) {
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, wkv6_kernel<RKV, WT, HD, G>, G * Shape<HD>::NT, smem());
-  }
-};
-
-// launch (blocks == nullptr) or query the blocks an SM holds and the
-// pairs a block takes
+// Dynamic shared memory of one block; above 48 KB (a probe's ring only)
+// the kernel is allowed it once.
 template <typename RKV, typename WT, int HD>
-cudaError_t dispatch(const Args& a, cudaStream_t s, int* blocks, int* per_block) {
-  // as many pairs as WKV_G asks and 227 KB of shared memory hold
-  constexpr int G = WKV_G < 232448 / sizeof(Smem<RKV, WT, HD>)
-                        ? WKV_G : static_cast<int>(232448 / sizeof(Smem<RKV, WT, HD>));
-  if (a.T >= WKV_G_T) {
-    if (!blocks) return Launch<RKV, WT, HD, G>::run(a, s);
-    *per_block = G;
-    return Launch<RKV, WT, HD, G>::occupancy(blocks);
+size_t smem_bytes() {
+  constexpr size_t bytes = sizeof(Smem<RKV, WT, HD>);
+  if constexpr (bytes > 48 * 1024) {
+    static const cudaError_t once = cudaFuncSetAttribute(
+        wkv6_kernel<RKV, WT, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    (void)once;
   }
-  if (!blocks) return Launch<RKV, WT, HD, 1>::run(a, s);
-  *per_block = 1;
-  return Launch<RKV, WT, HD, 1>::occupancy(blocks);
+  return bytes;
+}
+
+// Launch (blocks == nullptr) or ask how many blocks an SM holds.
+template <typename RKV, typename WT, int HD>
+cudaError_t run(const Args& a, cudaStream_t s, int* blocks) {
+  if (blocks)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, wkv6_kernel<RKV, WT, HD>,
+                                                         Shape<HD>::NT, smem_bytes<RKV, WT, HD>());
+  wkv6_kernel<RKV, WT, HD><<<a.BH, Shape<HD>::NT, smem_bytes<RKV, WT, HD>(), s>>>(a);
+  return cudaSuccess;
 }
 
 template <typename RKV, typename WT>
-cudaError_t by_hd(const Args& a, int hd, cudaStream_t s, int* blocks, int* per_block) {
+cudaError_t by_hd(const Args& a, int hd, cudaStream_t s, int* blocks) {
   switch (hd) {
-    case 16: return dispatch<RKV, WT, 16>(a, s, blocks, per_block);
-    case 32: return dispatch<RKV, WT, 32>(a, s, blocks, per_block);
-    case 64: return dispatch<RKV, WT, 64>(a, s, blocks, per_block);
+    case 16: return run<RKV, WT, 16>(a, s, blocks);
+    case 32: return run<RKV, WT, 32>(a, s, blocks);
+    case 64: return run<RKV, WT, 64>(a, s, blocks);
     default: return cudaErrorInvalidValue;
   }
 }
 
 cudaError_t by_dtype(const Args& a, int rkv_dtype, int w_dtype, int hd, cudaStream_t s,
-                     int* blocks = nullptr, int* per_block = nullptr) {
+                     int* blocks = nullptr) {
   using bf16 = __nv_bfloat16;
-  if (rkv_dtype == 0 && w_dtype == 0) return by_hd<float, float>(a, hd, s, blocks, per_block);
-  if (rkv_dtype == 0 && w_dtype == 1) return by_hd<float, bf16>(a, hd, s, blocks, per_block);
-  if (rkv_dtype == 1 && w_dtype == 0) return by_hd<bf16, float>(a, hd, s, blocks, per_block);
-  if (rkv_dtype == 1 && w_dtype == 1) return by_hd<bf16, bf16>(a, hd, s, blocks, per_block);
+  if (rkv_dtype == 0 && w_dtype == 0) return by_hd<float, float>(a, hd, s, blocks);
+  if (rkv_dtype == 0 && w_dtype == 1) return by_hd<float, bf16>(a, hd, s, blocks);
+  if (rkv_dtype == 1 && w_dtype == 0) return by_hd<bf16, float>(a, hd, s, blocks);
+  if (rkv_dtype == 1 && w_dtype == 1) return by_hd<bf16, bf16>(a, hd, s, blocks);
   return cudaErrorInvalidValue;
 }
 
@@ -607,12 +626,9 @@ extern "C" int repro_wkv6(const void* r, const void* k, const void* v, int rkv_d
   return (int)cudaGetLastError();
 }
 
-// For the kernel that (rkv_dtype, w_dtype, hd) at T steps launches: the
-// blocks one SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
-// into *blocks, the (batch, head) pairs a block takes into *per_block.
-extern "C" int repro_wkv6_blocks_per_sm(int rkv_dtype, int w_dtype, int hd, int T, int* blocks,
-                                        int* per_block) {
-  Args a{};
-  a.T = T;
-  return (int)by_dtype(a, rkv_dtype, w_dtype, hd, nullptr, blocks, per_block);
+// Blocks of the kernel for (rkv_dtype, w_dtype, hd), one a (batch, head)
+// pair, that one SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks.
+extern "C" int repro_wkv6_blocks_per_sm(int rkv_dtype, int w_dtype, int hd, int* blocks) {
+  return (int)by_dtype(Args{}, rkv_dtype, w_dtype, hd, nullptr, blocks);
 }

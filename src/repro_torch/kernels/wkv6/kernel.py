@@ -23,21 +23,19 @@ def _fn():
     return fn
 
 
-def blocks_per_sm(rkv_dtype: torch.dtype, w_dtype: torch.dtype, hd: int,
-                  T: int) -> tuple[int, int]:
-    """For the kernel a call with T steps launches: the blocks one SM
-    holds at once (the CUDA occupancy calculator's answer) and the
-    (batch, head) pairs a block takes.  Needs the card."""
+def blocks_per_sm(rkv_dtype: torch.dtype, w_dtype: torch.dtype,
+                  hd: int) -> int:
+    """Blocks of the kernel (one per (batch, head)) that one SM holds at
+    once, as the CUDA occupancy calculator gives it (needs the card)."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd} not supported (want one of {HEAD_DIMS})")
     fn = common.load("wkv6").repro_wkv6_blocks_per_sm
-    fn.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    fn.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
     fn.restype = ctypes.c_int
-    blocks, per_block = _I(0), _I(0)
+    out = _I(0)
     common.check(fn(common.dtype_code(rkv_dtype), common.dtype_code(w_dtype),
-                    hd, T, ctypes.byref(blocks), ctypes.byref(per_block)),
-                 "wkv6 occupancy")
-    return blocks.value, per_block.value
+                    hd, ctypes.byref(out)), "wkv6 occupancy")
+    return out.value
 
 
 def check(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,

@@ -181,7 +181,7 @@ def test_occupancy_query_refuses_other_head_dims():
     """The residency query names the head dims the kernel is built for,
     before any library is built or loaded."""
     with pytest.raises(ValueError, match="head dim"):
-        t_kernel.blocks_per_sm(torch.bfloat16, torch.float32, 48, 1024)
+        t_kernel.blocks_per_sm(torch.bfloat16, torch.float32, 48)
 
 
 # -- the hand-written kernel, on the card ------------------------------------------
@@ -273,9 +273,8 @@ def test_wkv6_kernel_takes_unaligned_views(cuda, rkv_dtype):
 
 @pytest.mark.cuda
 def test_wkv6_kernel_fills_the_card_in_one_wave(cuda):
-    """At the rwkv slice's prefill shape every (batch, head) pair is
-    resident at once: 16 x 64 pairs over the card's SMs."""
-    blocks, per_block = t_kernel.blocks_per_sm(torch.bfloat16, torch.float32,
-                                               64, 1024)
+    """At the rwkv slice's shapes every (batch, head) pair's block is
+    resident at once: 16 x 64 blocks over the card's SMs."""
+    blocks = t_kernel.blocks_per_sm(torch.bfloat16, torch.float32, 64)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    assert blocks * per_block * sms >= 16 * 64
+    assert blocks * sms >= 16 * 64

@@ -9,12 +9,12 @@ first.  Not part of the port: it calls the kernel's C entry point itself.
 It builds variants of ``src/repro_torch/csrc/wkv6.cu`` through the
 build-time hooks the source defines (``WKV_TI`` x ``WKV_TJ`` the hd-64
 tile, ``WKV_CT`` steps a chunk, ``WKV_S`` ring stages, ``WKV_TWO_STEP``,
-``WKV_YSTAGE``, and ``WKV_MARK`` for ``clock64`` phase marks; into
+``WKV_YSTAGE``, ``WKV_SPREAD``, and ``WKV_MARK`` for ``clock64`` phase
+marks; into
 ``build/probe_wkv6/``, one ``nvcc`` each, in parallel), and with
 ``--parent DIR`` the same file of another tree (for instance the parent
 commit unpacked into ``build/parent``) with the same flags.  For each it
-prints registers, spills (``-Xptxas -v``), the blocks an SM holds and
-the (batch, head) pairs a block takes at both shapes below,
+prints registers, spills (``-Xptxas -v``) and the blocks an SM holds,
 checks it against the plain version (prefill inputs, the model's decay
 distribution at T = 33), and times it with the card queued ahead:
 
@@ -25,8 +25,9 @@ distribution at T = 33), and times it with the card queued ahead:
 
 Every build is timed twice, in the order given and then reversed.  The
 ``clocks`` build (the default with phase marks) then splits block 0's
-time at both shapes into prologue (state load, first chunk issued),
-waiting for chunks, computing and epilogue (state store).
+time at both shapes into prologue (state load, first chunks issued),
+waiting for a chunk (and the barrier), issuing the next chunk's copies,
+computing and epilogue (state store).
 """
 from __future__ import annotations
 
@@ -45,33 +46,34 @@ OUT = ROOT / "build" / "probe_wkv6"
 #: (name, defines); the first is the source's default build
 VARIANTS = (
     ("default", ()),
-    ("sync0", ("-DWKV_SYNC=0",)),
-    ("sync2", ("-DWKV_SYNC=2",)),
-    ("g1", ("-DWKV_G=1",)),
-    ("g_at_t1", ("-DWKV_G_T=1",)),
-    ("ct8_s4", ("-DWKV_CT=8", "-DWKV_S=4")),
-    ("two_step", ("-DWKV_TWO_STEP=1",)),
-    ("two_step_sync2", ("-DWKV_TWO_STEP=1", "-DWKV_SYNC=2")),
-    ("two_step_g1", ("-DWKV_TWO_STEP=1", "-DWKV_G=1")),
-    ("two_step_ct8_s4", ("-DWKV_TWO_STEP=1", "-DWKV_CT=8", "-DWKV_S=4")),
+    ("one_step", ("-DWKV_TWO_STEP=0",)),
+    ("one_step_ct16_s2", ("-DWKV_TWO_STEP=0", "-DWKV_CT=16", "-DWKV_S=2")),
+    ("ct16_s2", ("-DWKV_CT=16", "-DWKV_S=2")),
+    ("s2", ("-DWKV_S=2",)),
+    ("s3", ("-DWKV_S=3",)),
+    ("ct4_s8", ("-DWKV_CT=4", "-DWKV_S=8")),
     ("ti8_tj8", ("-DWKV_TI=8", "-DWKV_TJ=8")),
+    ("ti8_tj16", ("-DWKV_TI=8", "-DWKV_TJ=16")),
+    ("ti16_tj4", ("-DWKV_TI=16", "-DWKV_TJ=4")),
     ("ystage", ("-DWKV_YSTAGE=1",)),
+    ("spread", ("-DWKV_SPREAD=1",)),
+    ("spread_ct16_s2", ("-DWKV_SPREAD=1", "-DWKV_CT=16", "-DWKV_S=2")),
 )
 #: between WKV_MARK(k) and the next mark
-PHASES = ("prologue", "wait", "compute", "epilogue")
+PHASES = ("prologue", "wait", "issue", "compute", "epilogue")
 CLOCKS_H = r'''
 #include <cuda_runtime.h>
-__device__ unsigned long long wk_sum[6];
+__device__ unsigned long long wk_sum[7];
 __device__ unsigned long long wk_ns[6];
 __device__ __forceinline__ void wk_mark(int k) {
   if (threadIdx.x != 0) return;
   if (blockIdx.x == 0) atomicAdd(&wk_sum[k], (unsigned long long)clock64());
-  if (k == 0 || k == 5) {  // the grid's first and last start, first and last end
+  if (k == 0 || k == 6) {  // the grid's first and last start, first and last end
     unsigned long long t;
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    atomicMin(&wk_ns[k / 5 * 2], t);
-    atomicMax(&wk_ns[k / 5 * 2 + 1], t);
-    if (blockIdx.x == 0) wk_ns[4 + k / 5] = t;  // block 0's start and end
+    atomicMin(&wk_ns[k / 6 * 2], t);
+    atomicMax(&wk_ns[k / 6 * 2 + 1], t);
+    if (blockIdx.x == 0) wk_ns[4 + k / 6] = t;  // block 0's start and end
   }
 }
 #define WKV_MARK(k) wk_mark(k)
@@ -80,7 +82,7 @@ extern "C" int probe_read(unsigned long long* sum, unsigned long long* ns) {
   return (int)cudaMemcpyFromSymbol(ns, wk_ns, sizeof(wk_ns));
 }
 extern "C" int probe_reset() {
-  const unsigned long long sum[6] = {0, 0, 0, 0, 0, 0};
+  const unsigned long long sum[7] = {0, 0, 0, 0, 0, 0, 0};
   const unsigned long long ns[6] = {~0ull, 0ull, ~0ull, 0ull, 0ull, 0ull};
   cudaMemcpyToSymbol(wk_sum, sum, sizeof(sum));
   return (int)cudaMemcpyToSymbol(wk_ns, ns, sizeof(ns));
@@ -160,29 +162,24 @@ def run(fn, r, k, v, w, u, s_in, s_out, y):
 
 
 def blocks_per_sm(lib, regs_smem: dict) -> str:
-    """Blocks an SM holds x (batch, head) pairs a block, for bf16 r/k/v
-    and fp32 w at hd 64, at the prefill and the decode shape: the
+    """Blocks an SM holds, for bf16 r/k/v and fp32 w at hd 64: the
     occupancy calculator's answer; for a build without the query (the
-    parent: one pair a block of 64 threads), derived from its registers
-    and shared memory (256-register allocation a warp, 1 KB reserved a
-    block, 228 KB an SM)."""
+    parent: 64 threads a block), derived from its registers and shared
+    memory (256-register allocation a warp, 1 KB reserved a block, 228
+    KB an SM)."""
     fn = getattr(lib, "repro_wkv6_blocks_per_sm", None)
     if fn is not None:
-        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
-        out = []
-        for t in (1024, 1):
-            blocks, per_block = ctypes.c_int(0), ctypes.c_int(0)
-            fn(1, 0, 64, t, ctypes.byref(blocks), ctypes.byref(per_block))
-            out.append(f"{blocks.value}x{per_block.value}")
-        return "/".join(out)
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        out = ctypes.c_int(0)
+        fn(1, 0, 64, ctypes.byref(out))
+        return str(out.value)
     key = [n for n in regs_smem if "__nv_bfloat16fLi64E" in n] \
         or list(regs_smem)
     regs, smem = regs_smem[key[0]]
     per_warp = -(-regs * 32 // 256) * 256
     by_regs = 65536 // (per_warp * 2)
     by_smem = (228 * 1024) // (smem + 1024)
-    n = min(by_regs, by_smem, 32)
-    return f"{n}x1/{n}x1(derived)"
+    return f"{min(by_regs, by_smem, 32)}(derived)"
 
 
 def main() -> int:
@@ -233,7 +230,7 @@ def main() -> int:
                             zip((y, s_out), want[id(x)])))
         regs = max((r for r, _ in regs_smem.values()), default=0)
         print(f"build/{name},hd64_max_registers={regs},spilling_functions="
-              f"{spills},occupancy={blocks_per_sm(libs[name][0], regs_smem)},"
+              f"{spills},blocks_per_sm={blocks_per_sm(libs[name][0], regs_smem)},"
               f"prefill_max_abs_err={errs[0]:.3g},"
               f"model_decay_T33_max_abs_err={errs[1]:.3g},"
               f"within_tol={int(ok)}", flush=True)
@@ -261,7 +258,7 @@ def main() -> int:
               f"decode_ms={d1:.4f}/{d2:.4f}", flush=True)
 
     lib = libs["clocks"][0]
-    sums = (ctypes.c_ulonglong * 6)()
+    sums = (ctypes.c_ulonglong * 7)()
     ns = (ctypes.c_ulonglong * 6)()
     for label, x, o in (("prefill", prefill, p_out),
                         ("decode", decode[0], d_outs[0])):
@@ -273,17 +270,18 @@ def main() -> int:
         torch.cuda.synchronize()
         lib.probe_read(sums, ns)
         t = list(sums)
-        wait = t[3] - t[2]
-        parts = (t[1] - t[0], wait, t[4] - t[1] - wait, t[5] - t[4])
+        wait, issue = t[3] - t[2], t[4] - t[3]
+        parts = (t[1] - t[0], wait, issue, t[5] - t[1] - wait - issue,
+                 t[6] - t[5])
         steps = x[0].shape[1]
         print(f"clocks/{label},block0_cycles," + ",".join(
             f"{p}={c}" for p, c in zip(PHASES, parts)) +
-            f",total={t[5] - t[0]},compute_cycles_per_step="
-            f"{parts[2] / steps:.1f},grid_start_spread_us="
+            f",total={t[6] - t[0]},compute_cycles_per_step="
+            f"{parts[3] / steps:.1f},grid_start_spread_us="
             f"{(ns[1] - ns[0]) / 1e3:.2f},grid_end_spread_us="
             f"{(ns[3] - ns[2]) / 1e3:.2f},kernel_span_us="
             f"{(ns[3] - ns[0]) / 1e3:.2f},block0_us={(ns[5] - ns[4]) / 1e3:.2f},"
-            f"block0_ghz={(t[5] - t[0]) / max(1, ns[5] - ns[4]):.3f}",
+            f"block0_ghz={(t[6] - t[0]) / max(1, ns[5] - ns[4]):.3f}",
             flush=True)
     return 0
 
