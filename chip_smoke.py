@@ -61,7 +61,8 @@ wrong result or a missing kernel launch:
    starting state) and decode shape (T = 1), the ring's ragged last chunk
    (T = 15, 17, 33) and the model's decay distribution (w = exp(-exp(x)),
    x in [-6, 3]) at head dims 16, 32 and 64 in fp32 and bf16, views that
-   are not 16-byte aligned, the state carried across two calls,
+   are not 16-byte aligned, inputs in pinned host memory, the state
+   carried across two calls,
    ``state_out`` aliasing ``state``; then its time at both shapes against
    its plain version and its byte bound, with the blocks an SM holds.
 8. the rwkv slice: rwkv6-7b at full width and depth, bf16, random weights
@@ -1383,6 +1384,16 @@ def phase_wkv6(stats: dict) -> None:
         worst = max(worst, err)
         log(f"phase7/wkv6/unaligned/{str(dtype)[6:]}/B2xT33xH2xhd64,"
             f"max_abs_err={err:.3g}")
+    # r, k, v, w in pinned host memory, read in place by the copies
+    r, k, v, w, u, s0 = _wkv_inputs(g, 2, 33, 2, 64, bf16, model_w)
+    y, s = ops.wkv6(*(_pinned(a) for a in (r, k, v, w)), u, s0)
+    y_p, s_p = ref.wkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y_p, **WKV_TOL)
+    torch.testing.assert_close(s, s_p, **WKV_TOL)
+    err = max(float((y - y_p).abs().max()), float((s - s_p).abs().max()))
+    worst = max(worst, err)
+    log(f"phase7/wkv6/pinned/bfloat16/B2xT33xH2xhd64,max_abs_err={err:.3g}")
     # the state carried across two calls (an odd split) against one call
     for shape, cut in (((1, 64, 2, 16), 32), ((B, T, H, hd), T // 2 + 1)):
         r, k, v, w, u, s0 = _wkv_inputs(g, *shape, bf16)
@@ -1432,7 +1443,7 @@ def phase_wkv6(stats: dict) -> None:
             f"plain_ms={p_ms:.4f},bound_ms={bound:.4f},bound_by={bound_by},"
             f"bound_share={bound / k_ms:.3f},library_ms=none,"
             f"blocks={B * H},resident_blocks_per_sm={per_sm},sms={sms}")
-    log(f"phase7/wkv6/sweep,cases={len(cases) + 6},max_abs_err={worst:.3g}")
+    log(f"phase7/wkv6/sweep,cases={len(cases) + 7},max_abs_err={worst:.3g}")
     stats["wkv"]["err"] = worst
     ops.LAUNCHES.reset()
 

@@ -78,8 +78,8 @@
 #ifndef WKV_YSTAGE
 #define WKV_YSTAGE 0
 #endif
-#ifndef WKV_SPREAD
-#define WKV_SPREAD 0
+#ifndef WKV_BULK
+#define WKV_BULK 1
 #endif
 #ifndef WKV_MARK
 #define WKV_MARK(k)
@@ -144,7 +144,32 @@ template <typename RKV, typename WT, int HD> struct Smem {
 #if WKV_YSTAGE
   float y[2][CT][HD];
 #endif
+  uint64_t full[S];  // a slot's chunk has landed (bulk copies)
 };
+
+__device__ __forceinline__ unsigned sa(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(sa(bar)));
+}
+// the one arrival of a slot's phase, with the bytes its copies bring
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("{\n .reg .b64 st;\n mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n"
+               ::"r"(sa(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n .reg .pred p;\n WAIT:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      " @!p bra WAIT;\n}\n" ::"r"(sa(bar)), "r"(parity) : "memory");
+}
+// one contiguous row, copied by the bulk-copy unit, counted on bar
+__device__ __forceinline__ void bulk(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(sa(dst)), "l"(src), "r"(bytes), "r"(sa(bar)) : "memory");
+}
 
 __device__ __forceinline__ void cp16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -170,21 +195,6 @@ __device__ __forceinline__ void stage(E* dst, const E* src, int64_t st, int n, i
     }
   } else {
     for (int p = tid; p < n * HD; p += NT) dst[p] = src[(p / HD) * st + p % HD];
-  }
-}
-
-// Stage one step of one input (HD values at src) into dst.
-template <typename E, int HD, int NT>
-__device__ __forceinline__ void stage_step(E* dst, const E* src, int tid, bool vec) {
-  constexpr int PER = 16 / sizeof(E);
-  if (vec) {
-#pragma unroll
-    for (int q = 0; q < (HD / PER + NT - 1) / NT; ++q) {
-      const int p = tid + q * NT;
-      if (p < HD / PER) cp16(dst + p * PER, src + p * PER);
-    }
-  } else {
-    for (int e = tid; e < HD; e += NT) dst[e] = src[e];
   }
 }
 
@@ -431,24 +441,43 @@ __global__ void __launch_bounds__(Shape<HD>::NT, WKV_MINB) wkv6_kernel(Args a) {
   const WT* wp = static_cast<const WT*>(a.w) + b * a.wsb + h * a.wsh;
   const int nch = (a.T + CT - 1) / CT;
 
+  // chunk c into its slot: per step one contiguous row of each input, by
+  // the bulk-copy unit (one copy a lane) counted on the slot's barrier,
+  // or (WKV_BULK=0) in 16-byte cp.async pieces; element by element when
+  // the inputs are not 16-byte aligned
   auto load_chunk = [&](int c) {
     const int slot = c % S, n = min(CT, a.T - c * CT);
     const int64_t t0 = static_cast<int64_t>(c) * CT;
+    if (WKV_BULK && a.vec) {
+      if (tid == 0) mbar_expect(&sm.full[slot], n * (3 * HD * sizeof(RKV) + HD * sizeof(WT)));
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+#pragma unroll
+      for (int q = tid; q < 4 * CT; q += NT) {
+        const int t = q % CT;
+        const int64_t row = (t0 + t) * a.st;
+        if (t >= n) continue;
+        switch (q / CT) {
+          case 0: bulk(&sm.r[slot][t][0], rp + row, HD * sizeof(RKV), &sm.full[slot]); break;
+          case 1: bulk(&sm.k[slot][t][0], kp + row, HD * sizeof(RKV), &sm.full[slot]); break;
+          case 2: bulk(&sm.v[slot][t][0], vp + row, HD * sizeof(RKV), &sm.full[slot]); break;
+          default:
+            bulk(&sm.w[slot][t][0], wp + (t0 + t) * a.wst, HD * sizeof(WT), &sm.full[slot]);
+        }
+      }
+      return;
+    }
+    if (WKV_BULK && tid == 0) mbar_expect(&sm.full[slot], 0);
     stage<RKV, HD, NT>(&sm.r[slot][0][0], rp + t0 * a.st, a.st, n, tid, a.vec);
     stage<RKV, HD, NT>(&sm.k[slot][0][0], kp + t0 * a.st, a.st, n, tid, a.vec);
     stage<RKV, HD, NT>(&sm.v[slot][0][0], vp + t0 * a.st, a.st, n, tid, a.vec);
     stage<WT, HD, NT>(&sm.w[slot][0][0], wp + t0 * a.wst, a.wst, n, tid, a.vec);
   };
-  // step t of chunk c, for copies spread over the steps of a chunk
-  auto load_step = [&](int c, int t) {
-    const int slot = c % S;
-    const int64_t tt = static_cast<int64_t>(c) * CT + t;
-    stage_step<RKV, HD, NT>(&sm.r[slot][t][0], rp + tt * a.st, tid, a.vec);
-    stage_step<RKV, HD, NT>(&sm.k[slot][t][0], kp + tt * a.st, tid, a.vec);
-    stage_step<RKV, HD, NT>(&sm.v[slot][t][0], vp + tt * a.st, tid, a.vec);
-    stage_step<WT, HD, NT>(&sm.w[slot][t][0], wp + tt * a.wst, tid, a.vec);
-  };
-  (void)load_step;
+  if (WKV_BULK && tid == 0) {
+#pragma unroll
+    for (int slot = 0; slot < S; ++slot) mbar_init(&sm.full[slot]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 #pragma unroll
   for (int c = 0; c < S - 1; ++c) {
     if (c < nch) load_chunk(c);
@@ -478,14 +507,12 @@ __global__ void __launch_bounds__(Shape<HD>::NT, WKV_MINB) wkv6_kernel(Args a) {
   const int64_t y_st = static_cast<int64_t>(a.H) * HD;
   for (int c = 0; c < nch; ++c) {
     WKV_MARK(2);
+    if (WKV_BULK) mbar_wait(&sm.full[c % S], (c / S) & 1);
     cp_wait<S - 2>();
     __syncthreads();  // chunk c landed for all; chunk c - 1 consumed by all
     WKV_MARK(3);
-    // chunk c + S - 1 goes into the slot chunk c - 1 left: at once, or
-    // (WKV_SPREAD) a step of it beside each step of chunk c
-    const int ahead = c + S - 1 < nch ? min(CT, a.T - (c + S - 1) * CT) : 0;
-    if (!WKV_SPREAD && ahead) load_chunk(c + S - 1);
-    if (!WKV_SPREAD) cp_commit();
+    if (c + S - 1 < nch) load_chunk(c + S - 1);  // into the slot chunk c - 1 left
+    cp_commit();
     WKV_MARK(4);
     const int slot = c % S, n = min(CT, a.T - c * CT);
     const int64_t t0 = static_cast<int64_t>(c) * CT;
@@ -504,8 +531,6 @@ __global__ void __launch_bounds__(Shape<HD>::NT, WKV_MINB) wkv6_kernel(Args a) {
     int t = 0;
 #if WKV_TWO_STEP
     for (; t + 1 < n; t += 2) {
-      if (WKV_SPREAD && t < ahead) load_step(c + S - 1, t);
-      if (WKV_SPREAD && t + 1 < ahead) load_step(c + S - 1, t + 1);
       float ya[TJ], yb[TJ];
       two_steps<HD>(s, u, bo, &sm.r[slot][t][i0], &sm.k[slot][t][i0], &sm.v[slot][t][j0],
                     &sm.w[slot][t][i0], HD, ya, yb);
@@ -515,13 +540,11 @@ __global__ void __launch_bounds__(Shape<HD>::NT, WKV_MINB) wkv6_kernel(Args a) {
 #endif
 #pragma unroll 1
     for (; t < n; ++t) {
-      if (WKV_SPREAD && t < ahead) load_step(c + S - 1, t);
       float y[TJ];
       one_step<HD>(s, u, bo, &sm.r[slot][t][i0], &sm.k[slot][t][i0], &sm.v[slot][t][j0],
                    &sm.w[slot][t][i0], y);
       emit<HD>(y, ig, jg, out(t));
     }
-    if (WKV_SPREAD) cp_commit();
   }
 #if WKV_YSTAGE
   __syncthreads();  // the last chunk's y

@@ -8,8 +8,8 @@ first.  Not part of the port: it calls the kernel's C entry point itself.
 
 It builds variants of ``src/repro_torch/csrc/wkv6.cu`` through the
 build-time hooks the source defines (``WKV_TI`` x ``WKV_TJ`` the hd-64
-tile, ``WKV_CT`` steps a chunk, ``WKV_S`` ring stages, ``WKV_TWO_STEP``,
-``WKV_YSTAGE``, ``WKV_SPREAD``, and ``WKV_MARK`` for ``clock64`` phase
+tile, ``WKV_CT`` steps a chunk, ``WKV_S`` ring stages, ``WKV_BULK``,
+``WKV_TWO_STEP``, ``WKV_YSTAGE``, and ``WKV_MARK`` for ``clock64`` phase
 marks; into
 ``build/probe_wkv6/``, one ``nvcc`` each, in parallel), and with
 ``--parent DIR`` the same file of another tree (for instance the parent
@@ -46,18 +46,17 @@ OUT = ROOT / "build" / "probe_wkv6"
 #: (name, defines); the first is the source's default build
 VARIANTS = (
     ("default", ()),
+    ("cp16", ("-DWKV_BULK=0",)),
     ("one_step", ("-DWKV_TWO_STEP=0",)),
-    ("one_step_ct16_s2", ("-DWKV_TWO_STEP=0", "-DWKV_CT=16", "-DWKV_S=2")),
+    ("one_step_cp16_ct16_s2", ("-DWKV_TWO_STEP=0", "-DWKV_BULK=0",
+                               "-DWKV_CT=16", "-DWKV_S=2")),
     ("ct16_s2", ("-DWKV_CT=16", "-DWKV_S=2")),
     ("s2", ("-DWKV_S=2",)),
     ("s3", ("-DWKV_S=3",)),
     ("ct4_s8", ("-DWKV_CT=4", "-DWKV_S=8")),
-    ("ti8_tj8", ("-DWKV_TI=8", "-DWKV_TJ=8")),
     ("ti8_tj16", ("-DWKV_TI=8", "-DWKV_TJ=16")),
     ("ti16_tj4", ("-DWKV_TI=16", "-DWKV_TJ=4")),
     ("ystage", ("-DWKV_YSTAGE=1",)),
-    ("spread", ("-DWKV_SPREAD=1",)),
-    ("spread_ct16_s2", ("-DWKV_SPREAD=1", "-DWKV_CT=16", "-DWKV_S=2")),
 )
 #: between WKV_MARK(k) and the next mark
 PHASES = ("prologue", "wait", "issue", "compute", "epilogue")
