@@ -79,7 +79,7 @@
 #define WKV_YSTAGE 0
 #endif
 #ifndef WKV_BULK
-#define WKV_BULK 1
+#define WKV_BULK 0
 #endif
 #ifndef WKV_MARK
 #define WKV_MARK(k)
@@ -450,7 +450,7 @@ __global__ void __launch_bounds__(Shape<HD>::NT, WKV_MINB) wkv6_kernel(Args a) {
     const int64_t t0 = static_cast<int64_t>(c) * CT;
     if (WKV_BULK && a.vec) {
       if (tid == 0) mbar_expect(&sm.full[slot], n * (3 * HD * sizeof(RKV) + HD * sizeof(WT)));
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      if (WKV_BULK == 2) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 #pragma unroll
       for (int q = tid; q < 4 * CT; q += NT) {
         const int t = q % CT;

@@ -46,17 +46,12 @@ OUT = ROOT / "build" / "probe_wkv6"
 #: (name, defines); the first is the source's default build
 VARIANTS = (
     ("default", ()),
-    ("cp16", ("-DWKV_BULK=0",)),
+    ("bulk", ("-DWKV_BULK=1",)),
+    ("bulk_fenced", ("-DWKV_BULK=2",)),
+    ("bulk_ct16_s2", ("-DWKV_BULK=1", "-DWKV_CT=16", "-DWKV_S=2")),
     ("one_step", ("-DWKV_TWO_STEP=0",)),
-    ("one_step_cp16_ct16_s2", ("-DWKV_TWO_STEP=0", "-DWKV_BULK=0",
-                               "-DWKV_CT=16", "-DWKV_S=2")),
     ("ct16_s2", ("-DWKV_CT=16", "-DWKV_S=2")),
-    ("s2", ("-DWKV_S=2",)),
     ("s3", ("-DWKV_S=3",)),
-    ("ct4_s8", ("-DWKV_CT=4", "-DWKV_S=8")),
-    ("ti8_tj16", ("-DWKV_TI=8", "-DWKV_TJ=16")),
-    ("ti16_tj4", ("-DWKV_TI=16", "-DWKV_TJ=4")),
-    ("ystage", ("-DWKV_YSTAGE=1",)),
 )
 #: between WKV_MARK(k) and the next mark
 PHASES = ("prologue", "wait", "issue", "compute", "epilogue")
