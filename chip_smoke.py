@@ -62,9 +62,9 @@ wrong result or a missing kernel launch:
    (T = 15, 17, 33) and the model's decay distribution (w = exp(-exp(x)),
    x in [-6, 3]) at head dims 16, 32 and 64 in fp32 and bf16, views that
    are not 16-byte aligned, inputs in pinned host memory, the state
-   carried across two calls,
-   ``state_out`` aliasing ``state``; then its time at both shapes against
-   its plain version and its byte bound, with the blocks an SM holds.
+   carried across two calls, ``state_out`` aliasing ``state``; then its
+   time at both shapes against its plain version and its byte bound,
+   with the blocks an SM holds.
 8. the rwkv slice: rwkv6-7b at full width and depth, bf16, random weights
    from a seeded generator; the recurrent state placed by the planner
    (pinned to HBM).  A prefill of 16 prompts of 1024 tokens, then 64
@@ -1357,8 +1357,9 @@ def phase_wkv6(stats: dict) -> None:
         ((2, 1, 4, 64), f32, ref_w), ((2, 1000, 4, 64), f32, ref_w),
         ((2, 1, 4, 64), bf16, ref_w), ((2, 1000, 4, 64), bf16, ref_w),
         ((B, T, H, hd), bf16, ref_w), ((B, 1, H, hd), bf16, ref_w)]
-    # the ring's ragged last chunk (16 steps a chunk in the default
-    # build), and the model's decay distribution, at every head dim
+    # the ring's ragged last chunk (8 steps a chunk, two a pass in the
+    # default build: T = 15, 17, 33 end 1, 2 and 4 chunks in, on an odd
+    # step), and the model's decay distribution, at every head dim
     cases += [((2, t, 2, d), dtype, ref_w) for d in (16, 32, 64)
               for t in (15, 17, 33) for dtype in (f32, bf16)]
     cases += [((2, 37, 2, d), dtype, model_w) for d in (16, 32, 64)

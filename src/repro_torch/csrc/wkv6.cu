@@ -9,50 +9,50 @@
 // with S[i][j] indexed (k-dim, v-dim).  Exact recurrence, no chunked 1/P
 // rescaling (which overflows for small decays).
 //
-// What bounds it on this card: FP32 issue, then bytes.  Per (b, t, h) the
-// kernel reads r, k, v (bf16 on the model's path) and w (fp32) and writes
-// y (fp32): 14·hd bytes, 0.29 ms at the rwkv prefill shape (16 x 1024 x
-// 64 heads of 64) over 3.35 TB/s.  The exact step costs 3 FP32
-// lane-instructions per state element (the y FMA, the k·v MUL, the decay
-// FMA): 12.9 G at that shape, 0.39 ms at 132 SMs x 128 lanes x 1.98 GHz.
-// So the kernel is bound by the issue of its own arithmetic, and the
-// design spends as few other instructions per element-step as it can:
+// What bounds it on this card: dispatching FP32 instructions, not bytes.
+// Per (b, t, h) the kernel reads r, k, v (bf16 on the model's path) and w
+// (fp32) and writes y (fp32): 14·hd bytes, 0.29 ms at the rwkv prefill
+// shape (16 x 1024 x 64 heads of 64) over 3.35 TB/s.  The exact step
+// costs 3 FP32 lane-instructions per state element (the y FMA, the k·v
+// MUL, the decay FMA): 12.9 G at that shape, 0.39 ms at 132 SMs x 128
+// lanes x 1.98 GHz, and every other instruction (loads, bf16 conversion,
+// shuffles, addresses) takes a dispatch slot beside them.  The design cuts
+// both the FP32 work and what surrounds it:
 //
-// * Register tiles.  A thread keeps a TI x TJ tile of the state (rows i,
-//   columns j) in registers for the whole sequence.  Per step it reads r,
-//   k, w for its TI rows and v for its TJ columns from shared memory in
-//   16-byte loads (8 x 8 at hd 64: 5 loads and 24 bf16 conversions per
-//   192 FP32 instructions), so loads no longer compete with the FMAs.
-// * The bonus in the tile.  Each thread forms its rows' part of
-//   sum_i r_i u_i k_i and folds v_j times it into its y partials, which
-//   the NIG = hd / TI threads that share a column group (one warp) sum by
-//   a reduce-scatter of `__shfl_xor_sync`; each thread ends with TJ / NIG
-//   whole y values, and a warp stores 32 consecutive floats of y per step
-//   (one full 128-byte line).
+// * One warp a (b, h) pair, the state in registers.  At hd 64 each lane
+//   keeps a 16 x 8 tile (rows i, columns j) for the whole sequence: 128
+//   state registers, up to 255 in all, 8 blocks an SM, so the 1024 pairs
+//   of the prefill shape are resident at once.  Per step a lane reads r,
+//   k, w for its rows and v for its columns from shared memory in wide
+//   loads: per two steps 24 loads and 88 bf16 conversions beside the 640
+//   FP32 instructions on its tile.  Its columns are 4-wide pieces 32
+//   apart, so a warp reads and writes whole 32-byte sectors of a state
+//   row.
+// * Two steps a pass.  The state advances over steps a, b at once, with
+//   products of w only (no division):
+//     S'' = diag(w_b w_a) S + (w_b k_a) v_a^T + k_b v_b^T
+//     y_b = (r_b w_a)^T S + (r_b . k_a) v_a + (r_b . u k_b) v_b
+//   5 FP32 instructions per element for two steps instead of 6; an odd
+//   last step takes the one-step form (WKV_TWO_STEP=0 keeps it always).
+// * The bonus across the warp.  The 8 lanes of a row group each sum 2 of
+//   its 16 rows of r·u·k (and r_b·k_a), add the 8 partials with three
+//   shuffles and fold v_j times the sum into their y partials; the 4 row
+//   groups then sum y by a reduce-scatter of `__shfl_xor_sync`, which
+//   leaves each lane 2 whole y values, stored straight from registers
+//   (a warp writes the 256-byte y row in one instruction).
 // * A `cp.async` ring.  r, k, v, w go from device memory to shared memory
-//   in 16-byte pieces (`.cg`), S stages of CT steps, the next S - 1
-//   chunks in flight while one is computed; one barrier a chunk.  The
+//   in 16-byte pieces (`.cg`): 4 stages of 8 steps (20 KB), the next 3
+//   chunks in flight while one is computed, one barrier a chunk.  The
 //   ragged last chunk copies and computes only its valid steps.  Inputs
 //   whose pointers or strides are not 16-byte aligned are copied element
 //   by element through the same ring.
-// * Residency.  1024 blocks (B·H at the prefill shape) fill 132 SMs in
-//   one wave at 8 blocks an SM: 64 threads with <= 128 registers and
-//   ~21 KB of ring a block at hd 64.
-// * state_in and state_out may be the same buffer: each thread reads its
-//   own tile before the loop and writes it after, and no other thread
+// * state_in and state_out may be the same buffer: each lane reads its
+//   own tile before the loop and writes it after, and no other lane
 //   touches it.
 //
 // Build-time hooks, for tools/wkv6_probe.py (each defaults to the build
 // above): WKV_TI x WKV_TJ the hd-64 tile, WKV_CT steps a chunk, WKV_S ring
-// stages, WKV_MINB blocks an SM for `__launch_bounds__`, WKV_TWO_STEP the
-// two-step update below, WKV_YSTAGE y staged a chunk at a time in shared
-// memory and stored in 16-byte pieces, WKV_MARK(k) a phase mark.
-//
-// The two-step update (WKV_TWO_STEP=1) advances the state over steps a, b
-// at once, with products of w only:
-//   S'' = diag(w_b w_a) S + (w_b k_a) v_a^T + k_b v_b^T
-//   y_b = (r_b w_a)^T S + (r_b . k_a) v_a + (r_b . u k_b) v_b
-// 5 FP32 instructions per element for two steps instead of 6.
+// stages, WKV_TWO_STEP the two-step update, WKV_MARK(k) a phase mark.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -69,17 +69,8 @@
 #ifndef WKV_S
 #define WKV_S 4
 #endif
-#ifndef WKV_MINB
-#define WKV_MINB 8
-#endif
 #ifndef WKV_TWO_STEP
 #define WKV_TWO_STEP 1
-#endif
-#ifndef WKV_YSTAGE
-#define WKV_YSTAGE 0
-#endif
-#ifndef WKV_BULK
-#define WKV_BULK 0
 #endif
 #ifndef WKV_MARK
 #define WKV_MARK(k)
@@ -141,35 +132,7 @@ struct Args {
 template <typename RKV, typename WT, int HD> struct Smem {
   RKV r[S][CT][HD], k[S][CT][HD], v[S][CT][HD];
   WT w[S][CT][HD];
-#if WKV_YSTAGE
-  float y[2][CT][HD];
-#endif
-  uint64_t full[S];  // a slot's chunk has landed (bulk copies)
 };
-
-__device__ __forceinline__ unsigned sa(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(sa(bar)));
-}
-// the one arrival of a slot's phase, with the bytes its copies bring
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile("{\n .reg .b64 st;\n mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n"
-               ::"r"(sa(bar)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  asm volatile(
-      "{\n .reg .pred p;\n WAIT:\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      " @!p bra WAIT;\n}\n" ::"r"(sa(bar)), "r"(parity) : "memory");
-}
-// one contiguous row, copied by the bulk-copy unit, counted on bar
-__device__ __forceinline__ void bulk(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(sa(dst)), "l"(src), "r"(bytes), "r"(sa(bar)) : "memory");
-}
 
 __device__ __forceinline__ void cp16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -299,8 +262,8 @@ __device__ __forceinline__ void reduce(float (&y)[TJ], int ig, int& off) {
   }
 }
 
-// The whole y of one step from the lanes' partials: to y (device memory)
-// or to ys (shared, a row of the chunk's stage).
+// The whole y of one step from the lanes' partials, stored to out (one
+// row of y in device memory).
 template <int HD>
 __device__ __forceinline__ void emit(float (&y)[Shape<HD>::TJ], int ig, int jg, float* out) {
   using Sh = Shape<HD>;
@@ -423,7 +386,7 @@ __device__ __forceinline__ void two_steps(float (&s)[TI][TJ], const float (&u)[S
 }
 
 template <typename RKV, typename WT, int HD>
-__global__ void __launch_bounds__(Shape<HD>::NT, WKV_MINB) wkv6_kernel(Args a) {
+__global__ void __launch_bounds__(Shape<HD>::NT, 8) wkv6_kernel(Args a) {
   using Sh = Shape<HD>;
   constexpr int TI = Sh::TI, TJ = Sh::TJ, NT = Sh::NT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -441,43 +404,14 @@ __global__ void __launch_bounds__(Shape<HD>::NT, WKV_MINB) wkv6_kernel(Args a) {
   const WT* wp = static_cast<const WT*>(a.w) + b * a.wsb + h * a.wsh;
   const int nch = (a.T + CT - 1) / CT;
 
-  // chunk c into its slot: per step one contiguous row of each input, by
-  // the bulk-copy unit (one copy a lane) counted on the slot's barrier,
-  // or (WKV_BULK=0) in 16-byte cp.async pieces; element by element when
-  // the inputs are not 16-byte aligned
   auto load_chunk = [&](int c) {
     const int slot = c % S, n = min(CT, a.T - c * CT);
     const int64_t t0 = static_cast<int64_t>(c) * CT;
-    if (WKV_BULK && a.vec) {
-      if (tid == 0) mbar_expect(&sm.full[slot], n * (3 * HD * sizeof(RKV) + HD * sizeof(WT)));
-      if (WKV_BULK == 2) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-#pragma unroll
-      for (int q = tid; q < 4 * CT; q += NT) {
-        const int t = q % CT;
-        const int64_t row = (t0 + t) * a.st;
-        if (t >= n) continue;
-        switch (q / CT) {
-          case 0: bulk(&sm.r[slot][t][0], rp + row, HD * sizeof(RKV), &sm.full[slot]); break;
-          case 1: bulk(&sm.k[slot][t][0], kp + row, HD * sizeof(RKV), &sm.full[slot]); break;
-          case 2: bulk(&sm.v[slot][t][0], vp + row, HD * sizeof(RKV), &sm.full[slot]); break;
-          default:
-            bulk(&sm.w[slot][t][0], wp + (t0 + t) * a.wst, HD * sizeof(WT), &sm.full[slot]);
-        }
-      }
-      return;
-    }
-    if (WKV_BULK && tid == 0) mbar_expect(&sm.full[slot], 0);
     stage<RKV, HD, NT>(&sm.r[slot][0][0], rp + t0 * a.st, a.st, n, tid, a.vec);
     stage<RKV, HD, NT>(&sm.k[slot][0][0], kp + t0 * a.st, a.st, n, tid, a.vec);
     stage<RKV, HD, NT>(&sm.v[slot][0][0], vp + t0 * a.st, a.st, n, tid, a.vec);
     stage<WT, HD, NT>(&sm.w[slot][0][0], wp + t0 * a.wst, a.wst, n, tid, a.vec);
   };
-  if (WKV_BULK && tid == 0) {
-#pragma unroll
-    for (int slot = 0; slot < S; ++slot) mbar_init(&sm.full[slot]);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
 #pragma unroll
   for (int c = 0; c < S - 1; ++c) {
     if (c < nch) load_chunk(c);
@@ -507,7 +441,6 @@ __global__ void __launch_bounds__(Shape<HD>::NT, WKV_MINB) wkv6_kernel(Args a) {
   const int64_t y_st = static_cast<int64_t>(a.H) * HD;
   for (int c = 0; c < nch; ++c) {
     WKV_MARK(2);
-    if (WKV_BULK) mbar_wait(&sm.full[c % S], (c / S) & 1);
     cp_wait<S - 2>();
     __syncthreads();  // chunk c landed for all; chunk c - 1 consumed by all
     WKV_MARK(3);
@@ -516,18 +449,7 @@ __global__ void __launch_bounds__(Shape<HD>::NT, WKV_MINB) wkv6_kernel(Args a) {
     WKV_MARK(4);
     const int slot = c % S, n = min(CT, a.T - c * CT);
     const int64_t t0 = static_cast<int64_t>(c) * CT;
-#if WKV_YSTAGE
-    if (c > 0) {  // chunk c - 1's y, whole since the barrier
-      for (int p = tid; p < CT * HD / 4; p += NT) {
-        const int cc = p / (HD / 4), e = (p % (HD / 4)) * 4;
-        *reinterpret_cast<float4*>(yrow + (t0 - CT + cc) * y_st + e) =
-            *reinterpret_cast<const float4*>(&sm.y[(c - 1) & 1][cc][e]);
-      }
-    }
-    auto out = [&](int t) { return &sm.y[c & 1][t][0]; };
-#else
     auto out = [&](int t) { return yrow + (t0 + t) * y_st; };
-#endif
     int t = 0;
 #if WKV_TWO_STEP
     for (; t + 1 < n; t += 2) {
@@ -546,17 +468,6 @@ __global__ void __launch_bounds__(Shape<HD>::NT, WKV_MINB) wkv6_kernel(Args a) {
       emit<HD>(y, ig, jg, out(t));
     }
   }
-#if WKV_YSTAGE
-  __syncthreads();  // the last chunk's y
-  {
-    const int c = nch - 1, m = a.T - c * CT;
-    for (int p = tid; p < m * HD / 4; p += NT) {
-      const int cc = p / (HD / 4), e = (p % (HD / 4)) * 4;
-      *reinterpret_cast<float4*>(yrow + (static_cast<int64_t>(c) * CT + cc) * y_st + e) =
-          *reinterpret_cast<const float4*>(&sm.y[c & 1][cc][e]);
-    }
-  }
-#endif
   WKV_MARK(5);
 #pragma unroll
   for (int i = 0; i < TI; ++i) {

@@ -8,9 +8,8 @@ first.  Not part of the port: it calls the kernel's C entry point itself.
 
 It builds variants of ``src/repro_torch/csrc/wkv6.cu`` through the
 build-time hooks the source defines (``WKV_TI`` x ``WKV_TJ`` the hd-64
-tile, ``WKV_CT`` steps a chunk, ``WKV_S`` ring stages, ``WKV_BULK``,
-``WKV_TWO_STEP``, ``WKV_YSTAGE``, and ``WKV_MARK`` for ``clock64`` phase
-marks; into
+tile, ``WKV_CT`` steps a chunk, ``WKV_S`` ring stages, ``WKV_TWO_STEP``,
+and ``WKV_MARK`` for ``clock64`` phase marks; into
 ``build/probe_wkv6/``, one ``nvcc`` each, in parallel), and with
 ``--parent DIR`` the same file of another tree (for instance the parent
 commit unpacked into ``build/parent``) with the same flags.  For each it
@@ -25,8 +24,8 @@ distribution at T = 33), and times it with the card queued ahead:
 
 Every build is timed twice, in the order given and then reversed.  The
 ``clocks`` build (the default with phase marks) then splits block 0's
-time at both shapes into prologue (state load, first chunks issued),
-waiting for a chunk (and the barrier), issuing the next chunk's copies,
+time at both shapes into prologue (state load, first chunks started),
+waiting for a chunk (and the barrier), starting the next chunk's copies,
 computing and epilogue (state store).
 """
 from __future__ import annotations
@@ -46,15 +45,18 @@ OUT = ROOT / "build" / "probe_wkv6"
 #: (name, defines); the first is the source's default build
 VARIANTS = (
     ("default", ()),
-    ("bulk", ("-DWKV_BULK=1",)),
-    ("bulk_fenced", ("-DWKV_BULK=2",)),
-    ("bulk_ct16_s2", ("-DWKV_BULK=1", "-DWKV_CT=16", "-DWKV_S=2")),
     ("one_step", ("-DWKV_TWO_STEP=0",)),
+    ("one_step_ct16_s2", ("-DWKV_TWO_STEP=0", "-DWKV_CT=16", "-DWKV_S=2")),
     ("ct16_s2", ("-DWKV_CT=16", "-DWKV_S=2")),
+    ("s2", ("-DWKV_S=2",)),
     ("s3", ("-DWKV_S=3",)),
+    ("ct4_s8", ("-DWKV_CT=4", "-DWKV_S=8")),
+    ("ti8_tj8", ("-DWKV_TI=8", "-DWKV_TJ=8")),
+    ("ti8_tj16", ("-DWKV_TI=8", "-DWKV_TJ=16")),
+    ("ti16_tj4", ("-DWKV_TI=16", "-DWKV_TJ=4")),
 )
 #: between WKV_MARK(k) and the next mark
-PHASES = ("prologue", "wait", "issue", "compute", "epilogue")
+PHASES = ("prologue", "wait", "copy", "compute", "epilogue")
 CLOCKS_H = r'''
 #include <cuda_runtime.h>
 __device__ unsigned long long wk_sum[7];
@@ -264,8 +266,8 @@ def main() -> int:
         torch.cuda.synchronize()
         lib.probe_read(sums, ns)
         t = list(sums)
-        wait, issue = t[3] - t[2], t[4] - t[3]
-        parts = (t[1] - t[0], wait, issue, t[5] - t[1] - wait - issue,
+        wait, copy = t[3] - t[2], t[4] - t[3]
+        parts = (t[1] - t[0], wait, copy, t[5] - t[1] - wait - copy,
                  t[6] - t[5])
         steps = x[0].shape[1]
         print(f"clocks/{label},block0_cycles," + ",".join(
