@@ -20,18 +20,27 @@ wrong result or a missing kernel launch:
    out-of-range rows, given weights or none.
 3. ``stream_copy`` against its plain version: the ragged row sweep on the
    HBM->HBM, pinned->HBM and HBM->pinned routes, with both casts, on
-   contiguous slabs and on row-strided 2-D views.
+   contiguous slabs and on row-strided 2-D views (one-segment launches);
+   the segment-list form, one launch for segments of 4 B to 4 MiB
+   (ragged, unaligned, row-strided, a repeated row) on all four routes
+   (pinned->pinned too) and all dtype pairs; then per route a 256 KiB
+   and a 256 MiB slab and a walk-shaped move (8192 runs of 256 KiB from
+   scattered places, one launch against 8192 one-segment launches), each
+   beside ``copy_`` and its byte bound.
 4. the slice: a 2^25 x 64 fp32 embedding table (8 GiB) paged with
    ``page_rows=64`` over an HBM shard and a pinned host shard; both
    forms of ``embedding_reduce`` timed against their plain versions,
    ``embedding_bag`` and their byte bounds; an actuation audit (0 -> 0.25
    -> 0.10 -> 0 slow, donated, through
-   ``BulkMover(execute=stream_executor())``), with the routed form timed
-   against the per-shard path at each step; membind-fast bags/s, device
+   ``BulkMover(execute=stream_executor())``; each move's ``stream_copy``
+   launches at most one a batch of 16 descriptors plus one landing), with
+   the routed form timed against the per-shard path at each step;
+   membind-fast bags/s, device
    busy share and host time per ``bag_reduce`` call; then a Caption walk
    from 0% slow on measured bag throughput.  Kernel launch counts are
-   reset right before the walk and read right after it, and
-   ``embedding_reduce``'s must equal the walk's ``bag_reduce`` calls.
+   reset right before the walk and read right after it;
+   ``embedding_reduce``'s must equal the walk's ``bag_reduce`` calls and
+   ``stream_copy``'s stay within the same bound summed over its moves.
    ``--sweep`` then measures bags/s at fixed slow fractions (not part of
    the main path).
 5. ``decode_attention`` against its plain version, both forms, fp32 and
@@ -127,6 +136,20 @@ def time_ms(fn, iters: int = 20, warmup: int = 3,
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def copy_ms(dst, src, iters: int = 20) -> float:
+    """``dst.copy_(src)``'s time: CUDA events with the card queued ahead,
+    or the host's clock when both sides are host memory (``copy_`` then
+    runs on the CPU, where the events see nothing)."""
+    if dst.is_cuda or src.is_cuda:
+        return time_ms(lambda: dst.copy_(src), iters=iters, warmup=1,
+                       queue_ahead=True)
+    dst.copy_(src)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        dst.copy_(src)
+    return (time.perf_counter() - t0) / iters * 1e3
 
 
 def phase_device() -> dict:
@@ -379,14 +402,14 @@ def phase_stream_copy(stats: dict) -> None:
     assert n_vec >= n2 // 4, (n_vec, n2)
     log(f"phase3/stream_copy/row_strided_sweep,cases={n2},"
         f"vector_body_cases={n_vec},bit_exact=1,max_abs_err={worst}")
+    seg_sweep(g, casts)
     # route rates on a 256 MiB slab (kernel vs copy_), and the slice's run
-    # slab (16 pages x 64 rows x 64 fp32 = 256 KiB)
-    for rname, (smem, dmem) in routes.items():
+    # slab (16 pages x 64 rows x 64 fp32 = 256 KiB), one-segment launches
+    for rname, (smem, dmem) in ROUTES4.items():
         for rows in (1 << 20, 16 * PAGE_ROWS):
             host = torch.randn((rows, DIM), generator=g)
-            src = host.to(dev) if smem == "hbm" else _pinned(host)
-            out = (torch.empty_like(src, device=dev) if dmem == "hbm"
-                   else torch.empty(src.shape, pin_memory=True))
+            src = _place(host, smem)
+            out = _place(torch.empty(src.shape), dmem)
             ops.stream_copy(src, out=out)  # the timed slab, checked first
             torch.cuda.synchronize()
             got = out.cpu()
@@ -394,20 +417,153 @@ def phase_stream_copy(stats: dict) -> None:
             assert torch.equal(got, ref.stream_copy(host)), (rname, rows)
             nbytes = src.numel() * 4
             k_ms = time_ms(lambda: ops.stream_copy(src, out=out), queue_ahead=True)
-            lib_ms = time_ms(lambda: out.copy_(src), queue_ahead=True)
+            lib_ms = copy_ms(out, src)
             # the plain version, then the move into the destination memory
             # (host work for a pinned source: timed with the host's gaps)
             p_ms = time_ms(lambda: out.copy_(ref.stream_copy(src)))
-            bound = (2 * nbytes / HBM_BW if rname == "hbm->hbm"
-                     else nbytes / PCIE_BW)
+            bound = copy_bound(rname, nbytes)
             log(f"phase3/stream_copy/{rname}/rows{rows},bytes={nbytes},"
                 f"ms={k_ms:.4f},plain_ms={p_ms:.4f},copy_ms={lib_ms:.4f},"
-                f"bound_ms={bound * 1e3:.4f},"
+                f"bound_ms={bound:.4f},"
                 f"GBps={nbytes / (k_ms * 1e-3) / 1e9:.2f}")
-            stats[f"copy/{rname}/{rows}"] = (k_ms, p_ms, lib_ms, bound * 1e3,
+            stats[f"copy/{rname}/{rows}"] = (k_ms, p_ms, lib_ms, bound,
                                               nbytes)
+    walk_moves(stats, g)
     stats["stream_copy_err"] = worst
     ops.LAUNCHES.reset()
+
+
+#: the four routes of the segment-list sweep and the timed copies
+ROUTES4 = {"hbm->hbm": ("hbm", "hbm"), "pinned->hbm": ("pinned", "hbm"),
+           "hbm->pinned": ("hbm", "pinned"),
+           "pinned->pinned": ("pinned", "pinned")}
+RUN_BYTES = 16 * PAGE_ROWS * DIM * 4  # a DLRM walk's run: 256 KiB
+WALK_RUNS = 8192  # runs in a walk-shaped move: 2 GiB, the audit's first
+
+
+def _place(t, mem: str):
+    return t.to("cuda") if mem == "hbm" else t.pin_memory()
+
+
+def copy_bound(route: str, nbytes: int) -> float:
+    """ms: each byte read once and written once, over PCIe when either
+    side is pinned host memory (one direction each way), else over HBM."""
+    if route == "hbm->hbm":
+        return 2 * nbytes / HBM_BW * 1e3
+    return nbytes / PCIE_BW * 1e3
+
+
+def seg_list():
+    """Segments of 1 element (4 B fp32) to 2^20 elements (4 MiB fp32),
+    back to back with gaps: aligned, ragged, unaligned on either side,
+    row-strided (aligned and not), one row repeated (source stride 0) and
+    a contiguous multi-row block.  Returns (source elements, destination
+    elements, segments)."""
+    import numpy as np
+    #: (rows, cols, source pad, destination pad, source extra stride,
+    #: destination extra stride); a source extra stride of -1 repeats
+    #: one row
+    specs = [(1, 4, 0, 0, 0, 0), (1, 1, 1, 3, 0, 0), (1, 17, 3, 0, 0, 0),
+             (1, 1000, 0, 0, 0, 0), (30, 1000, 0, 0, 32, 40),
+             (30, 1000, 1, 1, 3, 5), (5, 4, 0, 0, -1, 4),
+             (1, 4096, 0, 0, 0, 0), (1, 65539, 4, 0, 0, 0),
+             (1, 262144, 0, 0, 0, 0), (1, 1048576, 0, 2, 0, 0),
+             (64, 4096, 0, 0, 0, 0)]
+    segs, s, d = [], 0, 0
+    for rows, cols, sp, dp, se, de in specs:
+        ss = 0 if se < 0 else cols + se
+        ds = cols + de
+        segs.append((0, s + sp, ss, 0, d + dp, ds, rows, cols))
+        s += sp + (cols if ss == 0 else rows * ss) + 8
+        d += dp + rows * ds + 8
+        s, d = -(-s // 16) * 16, -(-d // 16) * 16
+    return s, d, np.array(segs, np.int64)
+
+
+def seg_sweep(g, casts) -> None:
+    """The segment-list form: one launch moves the whole list, on every
+    route and dtype pair, bit-exact against the plain version, nothing
+    outside the segments written."""
+    import torch
+    from repro_torch.kernels.stream_copy import ops, ref
+    n_src, n_dst, segs = seg_list()
+    n = 0
+    for rname, (smem, dmem) in ROUTES4.items():
+        for sdt, odt in casts:
+            out_dt = odt or sdt
+            host = torch.randn(n_src, generator=g).to(sdt)
+            want = torch.full((n_dst,), -7.0, dtype=out_dt)
+            ref.stream_copy_segments([host], [want], segs)
+            dst = _place(torch.full((n_dst,), -7.0, dtype=out_dt), dmem)
+            before = ops.LAUNCHES.count
+            ops.stream_copy_segments([_place(host, smem)], [dst], segs)
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES.count == before + 1, rname
+            assert torch.equal(dst.cpu(), want), (rname, sdt, odt)
+            n += 1
+    log(f"phase3/stream_copy/segment_sweep,cases={n},segments={len(segs)},"
+        f"smallest_bytes=4,largest_bytes={4 << 20},bit_exact=1,"
+        f"max_abs_err=0.0")
+
+
+def walk_moves(stats: dict, g) -> None:
+    """A walk-shaped move on each route: 8192 runs of 256 KiB read from
+    scattered places into one 2 GiB buffer, as one segment-list launch and
+    as 8192 one-segment launches, with ``copy_`` of the same bytes as one
+    contiguous slab beside them; the HBM -> pinned move (a move's landing
+    into the slow shard) also against the plain version."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.stream_copy import ops, ref
+    run = RUN_BYTES // 4
+    elems = WALK_RUNS * run
+    nbytes = elems * 4
+    mem = {"hbm": [torch.empty(elems, device="cuda") for _ in range(2)],
+           "pinned": [torch.empty(elems, pin_memory=True) for _ in range(2)]}
+    mem["hbm"][0].uniform_(generator=None)
+    mem["pinned"][0].copy_(mem["hbm"][0])
+    perm = np.random.default_rng(3).permutation(WALK_RUNS)
+    segs = np.zeros((WALK_RUNS, 8), np.int64)
+    segs[:, 1] = perm * run
+    segs[:, 4] = np.arange(WALK_RUNS) * run
+    segs[:, [2, 5, 7]] = run
+    segs[:, 6] = 1
+    for rname, (smem, dmem) in ROUTES4.items():
+        src, dst = mem[smem][0], mem[dmem][1]
+        views = [(src[p * run:(p + 1) * run], dst[i * run:(i + 1) * run])
+                 for i, p in enumerate(perm.tolist())]
+        dst.zero_()
+        ops.stream_copy_segments([src], [dst], segs)
+        torch.cuda.synchronize()
+        k = torch.from_numpy(perm) if smem == "pinned" else torch.as_tensor(
+            perm, device="cuda")
+        want = src.view(WALK_RUNS, run).index_select(0, k)
+        assert torch.equal(dst.view(WALK_RUNS, run).to(want.device), want), \
+            rname
+        del want
+        k_ms = time_ms(lambda: ops.stream_copy_segments([src], [dst], segs),
+                       iters=5, warmup=1, queue_ahead=True)
+
+        def many():
+            for s_, d_ in views:
+                ops.stream_copy(s_, out=d_)
+
+        m_ms = time_ms(many, iters=2, warmup=1, queue_ahead=True)
+        lib_ms = copy_ms(dst, src, iters=5)
+        bound = copy_bound(rname, nbytes)
+        p_ms = None
+        if rname == "hbm->pinned":
+            p_ms = time_ms(lambda: ref.stream_copy_segments([src], [dst],
+                                                            segs),
+                           iters=1, warmup=0)
+        log(f"phase3/stream_copy/{rname}/walk_{WALK_RUNS}x256KiB,"
+            f"bytes={nbytes},ms={k_ms:.4f},launches=1,"
+            f"one_segment_launches_ms={m_ms:.4f},copy_ms={lib_ms:.4f},"
+            f"bound_ms={bound:.4f},GBps={nbytes / (k_ms * 1e-3) / 1e9:.2f}"
+            + (f",plain_ms={p_ms:.4f}" if p_ms is not None else ""))
+        stats[f"walk/{rname}"] = (k_ms, p_ms, lib_ms, bound, nbytes, m_ms)
+    del mem
+    torch.cuda.empty_cache()
 
 
 #: ``InterleavedTensor.bag_reduce`` calls made through ``bags``
@@ -613,24 +769,30 @@ def phase_slice(stats: dict, rows_log2: int, sweep: bool) -> dict:
         for f in (0.25, 0.10, 0.0):
             before_slow = int(round(it.slow_fraction() * it.n_pages))
             b0, d0 = mover.bytes_submitted, mover.descriptors_submitted
+            sc_ops.LAUNCHES.reset()
             t0 = time.perf_counter()
             it = it.repartition_fraction(f, mover=mover, fast_tier=fast,
                                          slow_tier=slow, donate=True)
             torch.cuda.synchronize()
             act_s = time.perf_counter() - t0
+            sc_launches = sc_ops.LAUNCHES.reset()
             delta = abs(int(round(it.slow_fraction() * it.n_pages))
                         - before_slow)
             billed = mover.bytes_submitted - b0
             descs = mover.descriptors_submitted - d0
             assert delta > 0 and billed == delta * page_bytes, (billed, delta)
             assert descs < delta, (descs, delta)
+            # one gather launch per batch of 16 descriptors, one landing
+            assert 0 < sc_launches <= launch_bound(descs), (sc_launches,
+                                                            descs)
             for b, w in zip(batches, want):
                 assert torch.equal(it.bag_reduce(b), w), f
             forms[f] = routed_vs_per_shard(it, batches[0], f"audit/f{f:.2f}")
             assert [p.data_ptr() for p in it.parts] == ptrs
             assert FULL_SHARD_COPIES.count == 0
             log(f"phase4/audit/f{f:.2f},delta_pages={delta},billed={billed},"
-                f"descriptors={descs},seconds={act_s:.3f},"
+                f"descriptors={descs},stream_copy_launches={sc_launches},"
+                f"launch_bound={launch_bound(descs)},seconds={act_s:.3f},"
                 f"GBps={billed / act_s / 1e9:.2f},bags_bit_equal=1,"
                 f"data_ptr_same=1,full_shard_copies=0")
 
@@ -648,14 +810,17 @@ def phase_slice(stats: dict, rows_log2: int, sweep: bool) -> dict:
         er_ops.LAUNCHES.reset()
         sc_ops.LAUNCHES.reset()
         trajectory = []
+        walk_bound = 0
         for epoch in range(48):
             rate = epoch_rate(it, batches)
             d = ctl.observe(EpochMetrics(throughput=rate))
+            d0 = mover.descriptors_submitted
             t0 = time.perf_counter()
             it = it.repartition_fraction(d.fraction, mover=mover,
                                          fast_tier=fast, slow_tier=slow,
                                          donate=True)
             torch.cuda.synchronize()
+            walk_bound += launch_bound(mover.descriptors_submitted - d0)
             ctl.actuated(it.slow_fraction())
             trajectory.append((epoch, round(it.slow_fraction(), 4), rate))
             log(f"phase4/walk/epoch{epoch:02d},f={it.slow_fraction():.4f},"
@@ -668,6 +833,7 @@ def phase_slice(stats: dict, rows_log2: int, sweep: bool) -> dict:
                     "stream_copy": sc_ops.LAUNCHES.count}
         calls = BAG_CALLS
     assert launches["embedding_reduce"] == calls, (launches, calls)
+    assert launches["stream_copy"] <= walk_bound, (launches, walk_bound)
     for b, w in zip(batches, want):
         assert torch.equal(it.bag_reduce(b), w)
     assert [p.data_ptr() for p in it.parts] == ptrs
@@ -675,13 +841,15 @@ def phase_slice(stats: dict, rows_log2: int, sweep: bool) -> dict:
     log(f"phase4/walk/final,f={it.slow_fraction():.4f},converged="
         f"{int(ctl.converged)},epochs={len(trajectory)},"
         f"bags_per_s={final:.0f},membind_bags_per_s={membind:.0f},"
-        f"launches={launches},bag_reduce_calls={calls}")
+        f"launches={launches},bag_reduce_calls={calls},"
+        f"stream_copy_launch_bound={walk_bound}")
     for name, count in launches.items():
         assert count > 0, f"{name} was never launched on the main path"
     landed = it.slow_fraction()
     if sweep:
         sweep_fractions(it, batches, want, landed)
-    run = stats[f"copy/hbm->pinned/{16 * PAGE_ROWS}"]
+    run = stats["walk/hbm->pinned"]
+    slab = stats[f"copy/hbm->pinned/{16 * PAGE_ROWS}"]
     return {
         "launches": launches,
         "er": {"ms": r_ms, "plain_ms": rp_ms, "library_ms": rl_ms,
@@ -692,8 +860,17 @@ def phase_slice(stats: dict, rows_log2: int, sweep: bool) -> dict:
                "err": max(er_err, stats["embedding_reduce_err"])},
         "sc": {"ms": run[0], "plain_ms": run[1], "library_ms": run[2],
                "bound_ms": run[3], "nbytes": run[4],
+               "one_segment_launches_ms": run[5],
+               "slab_256KiB": {"ms": slab[0], "plain_ms": slab[1],
+                               "library_ms": slab[2], "bound_ms": slab[3]},
                "err": stats["stream_copy_err"]},
     }
+
+
+def launch_bound(descriptors: int, batch: int = 16) -> int:
+    """``stream_copy`` launches a move may make: one gather launch per
+    mover batch, and one landing launch (none for an empty move)."""
+    return -(-descriptors // batch) + 1 if descriptors else 0
 
 
 def sweep_fractions(it, batches, want, landed: float) -> None:
@@ -1724,7 +1901,11 @@ def main(argv=None) -> int:
          "max_abs_err": sc["err"], "ms": sc["ms"],
          "plain_ms": sc["plain_ms"],
          "bound_ms": sc["bound_ms"], "bound_by": "bytes",
-         "library_ms": sc["library_ms"]},
+         "library_ms": sc["library_ms"],
+         "shape": "walk-shaped move, HBM -> pinned, 8192 x 256 KiB, "
+                  "one launch; library: copy_ of the same bytes",
+         "one_segment_launches_ms": sc["one_segment_launches_ms"],
+         "slab_256KiB_hbm_to_pinned": sc["slab_256KiB"]},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention/kernel.py:65",

@@ -35,12 +35,14 @@ Memory backends (``backend=`` on :meth:`from_array`, which follows from
   accounting (ledger + telemetry + perfmodel).
 * ``pinned`` (CUDA) — shard 0 lives in HBM, every slow shard in
   page-locked host memory.  The ``embedding_reduce`` kernel reads a
-  slow shard in place through unified virtual addressing, and page
-  moves run through the mover's executor from shard memory to shard
-  memory: with :func:`~repro_torch.core.mover.stream_executor` the
-  ``stream_copy`` kernel stages each run in the destination's memory and
-  ``index_copy_`` lands it in its free slots.  No host mirror of a card
-  shard exists.
+  slow shard in place through unified virtual addressing, and a page
+  move is two kinds of ``stream_copy`` segment-list launch on the card
+  (:func:`move_plan`): the gather stages every run in one HBM buffer (one
+  launch, or one per mover batch with
+  :func:`~repro_torch.core.mover.stream_executor`), then one landing
+  launch writes each staged page into its free slot, in a pinned shard
+  in place.  No per-run allocation, no host wait, no host-side landing;
+  no host mirror of a card shard exists.
 
 Donation (``donate=`` on the writers/repartitioners): when the caller
 provably drops the parent tensor, the stable-path update writes the
@@ -58,12 +60,13 @@ import torch
 
 from repro_torch.core.donation import FULL_SHARD_COPIES, donated_update
 from repro_torch.core.ledger import TierLedger
-from repro_torch.core.mover import LANE_BULK, PINNED, Descriptor
+from repro_torch.core.mover import LANE_BULK, Descriptor
 from repro_torch.core.policy import MemPolicy, largest_remainder_split
 from repro_torch.core.telemetry import GLOBAL_TELEMETRY, Telemetry
-from repro_torch.device import (DeviceLike, resolve_backend, resolve_device,
-                                shard_storage)
+from repro_torch.device import (DeviceLike, host_to_device, resolve_backend,
+                                resolve_device, shard_storage)
 from repro_torch.kernels.embedding_reduce import ops as er_ops, ref as er_ref
+from repro_torch.kernels.stream_copy import ops as sc_ops
 
 #: default movement-run length (pages) the minimal-move planner clusters
 #: its picks into: one mover Descriptor ships one run, so a Δ-page shift
@@ -168,6 +171,65 @@ def route_pure_runs(src: np.ndarray, dst: np.ndarray, loc: np.ndarray
     starts = np.concatenate(([0], brk))
     ends = np.concatenate((brk, [order.size]))
     return order, starts, ends
+
+
+def page_segments(src_id, src_page, dst_id, dst_page) -> np.ndarray:
+    """Page pairs ``(src_id, src_page) -> (dst_id, dst_page)``, in order,
+    coalesced into ``(n, 5)`` int64 rows ``(src_id, src_page, dst_id,
+    dst_page, n_pages)``: a segment goes on while both ids repeat and both
+    pages advance by one."""
+    a = [np.asarray(x, np.int64).reshape(-1)
+         for x in (src_id, src_page, dst_id, dst_page)]
+    if a[0].size == 0:
+        return np.zeros((0, 5), np.int64)
+    brk = np.nonzero((np.diff(a[0]) != 0) | (np.diff(a[2]) != 0)
+                     | (np.diff(a[1]) != 1) | (np.diff(a[3]) != 1))[0] + 1
+    starts = np.concatenate(([0], brk))
+    ends = np.concatenate((brk, [a[0].size]))
+    return np.stack([x[starts] for x in a] + [ends - starts], axis=1)
+
+
+def move_plan(runs, new_dev: Optional[np.ndarray] = None,
+              new_local: Optional[np.ndarray] = None
+              ) -> tuple[np.ndarray, np.ndarray]:
+    """The two segment lists of a page move, in pages (rows as
+    :func:`page_segments`):
+
+    * the gather: each run ``(src_dev, dst_dev, page_ids, src_local0)``'s
+      source slab (base ``src_dev``) -> its place in one staging buffer
+      (base 0), the runs staged one after another in order;
+    * the landing: the staged pages (base 0) -> their destination slots
+      ``(new_dev[p], new_local[p])``, consecutive slots coalesced (empty
+      without ``new_dev``).
+
+    Run in this order, with every gather finished before the landing
+    starts, no page is overwritten before it was staged."""
+    if not runs:
+        return np.zeros((0, 5), np.int64), np.zeros((0, 5), np.int64)
+    src = np.array([(s, l0, len(p)) for s, _, p, l0 in runs], np.int64)
+    n = src[:, 2]
+    gather = np.stack([src[:, 0], src[:, 1], np.zeros_like(n),
+                       np.cumsum(n) - n, n], axis=1)
+    if new_dev is None:
+        return gather, np.zeros((0, 5), np.int64)
+    pages = np.concatenate([p for _, _, p, _ in runs])
+    landing = page_segments(np.zeros(pages.size), np.arange(pages.size),
+                            np.asarray(new_dev)[pages],
+                            np.asarray(new_local)[pages])
+    return gather, landing
+
+
+def element_segments(page_segs: np.ndarray, page_elems: int) -> np.ndarray:
+    """Page segments -> the ``(n, 8)`` element segments of
+    :func:`~repro_torch.kernels.stream_copy.ops.stream_copy_segments`:
+    each one contiguous row of ``n_pages * page_elems`` elements."""
+    ps = np.asarray(page_segs, np.int64).reshape(-1, 5)
+    n_el = ps[:, 4] * page_elems
+    out = np.empty((len(ps), 8), np.int64)
+    out[:, 0], out[:, 1], out[:, 2] = ps[:, 0], ps[:, 1] * page_elems, n_el
+    out[:, 3], out[:, 4], out[:, 5] = ps[:, 2], ps[:, 3] * page_elems, n_el
+    out[:, 6], out[:, 7] = 1, n_el
+    return out
 
 
 def _policy_device_map(policy, n_pages: int
@@ -278,10 +340,9 @@ class InterleavedTensor:
 
     def _maps(self, dev: np.ndarray, local: np.ndarray) -> dict:
         """Device copies of host-built maps (``dataclasses.replace`` kwargs)."""
-        return {"page_device": torch.as_tensor(dev, dtype=torch.int8,
-                                               device=self.device),
-                "page_local": torch.as_tensor(local, dtype=torch.int64,
-                                              device=self.device)}
+        return {"page_device": host_to_device(dev, torch.int8, self.device),
+                "page_local": host_to_device(local, torch.int64,
+                                             self.device)}
 
     # -- two-device compatibility views --------------------------------------
     @property
@@ -468,6 +529,7 @@ class InterleavedTensor:
                               else idx)
         dev, local = self._route(idx)
         feat = tuple(self.parts[0].shape[1:])
+        self._host_access()
         out = None
         for i, part in enumerate(self.parts):
             if part.shape[0] == 0:
@@ -494,6 +556,7 @@ class InterleavedTensor:
             return torch.zeros(idx.shape + feat, dtype=dtype,
                                device=self.device)
         dev, local = self._route_host(flat)
+        self._host_access()
         out = torch.empty((flat.size,) + feat, dtype=dtype, device=self.device)
         for i, part in enumerate(self.parts):
             mask = dev == i
@@ -507,10 +570,21 @@ class InterleavedTensor:
         return out.reshape(idx.shape + feat)
 
     def _copy_shard(self, i: int) -> torch.Tensor:
-        """A full copy of shard ``i`` in the same memory (copy-on-write)."""
+        """A full copy of shard ``i`` in the same memory (copy-on-write):
+        one ``stream_copy`` launch on the card, in stream order."""
         part = self.parts[i]
-        return _empty(part.shape, part.dtype, i, self.backend,
-                      self.device).copy_(part)
+        return sc_ops.stream_copy(
+            part, out=_empty(part.shape, part.dtype, i, self.backend,
+                             self.device), device=self.device)
+
+    def _host_access(self) -> None:
+        """Before the host reads or writes a pinned shard itself: wait
+        for the card's queued work, which may still read or write it (a
+        move's landing and a shard copy are kernel launches on this
+        stream)."""
+        if self.device.type == "cuda" and any(not p.is_cuda
+                                              for p in self.parts):
+            torch.cuda.current_stream(self.device).synchronize()
 
     def _scatter_masked(self, idx, values, op: str) -> "InterleavedTensor":
         """The N-pass formulation: every shard scatters the whole batch,
@@ -528,6 +602,8 @@ class InterleavedTensor:
             p_idx = torch.where(dev == i, local, part.shape[0]).reshape(-1)
             keep = p_idx < part.shape[0]
             new = self._copy_shard(i)
+            if not new.is_cuda:
+                self._host_access()
             donated_update(new, p_idx[keep].to(part.device),
                            vals[keep.to(vals.device)].to(part.device), op)
             parts.append(new)
@@ -558,10 +634,13 @@ class InterleavedTensor:
                                               dtype=part.dtype)
             r = torch.as_tensor(rows[keep], device=part.device)
             if donate:
-                parts[i] = donated_update(part, r, v, op)
-                continue
-            FULL_SHARD_COPIES.bump()
-            parts[i] = donated_update(self._copy_shard(i), r, v, op)
+                target = part
+            else:
+                FULL_SHARD_COPIES.bump()
+                target = self._copy_shard(i)
+            if not target.is_cuda:
+                self._host_access()
+            parts[i] = donated_update(target, r, v, op)
         return dataclasses.replace(self, parts=tuple(parts))
 
     def update_rows(self, idx, values, *,
@@ -717,60 +796,60 @@ class InterleavedTensor:
         return [(int(src[s]), int(dst[s]), pages[s:e], int(loc[s]))
                 for s, e in zip(starts, ends)]
 
-    def _memory(self, ordinal: int):
-        """Mover ``dst`` for shard ``ordinal``: HBM or pinned host on the
-        ``pinned`` backend; beside the payload (the host) on ``modeled``."""
-        if self.backend != "pinned":
-            return None
-        return self.device if ordinal == 0 else PINNED
-
     def _slab(self, s: int, l0: int, n_pages: int) -> torch.Tensor:
         pr = self.page_rows
         return self.parts[s][l0 * pr: (l0 + n_pages) * pr]
 
     def _ship_runs(self, runs, names, *, mover, telemetry, source, lane
-                   ) -> list[torch.Tensor]:
-        """Move the runs' data into their destinations' memory and return
-        one staged copy per run (gather-first: nothing is written yet).
+                   ) -> Optional[torch.Tensor]:
+        """Gather every run's pages into one staging buffer beside the
+        tensor (HBM on the card), in run order, before any shard is
+        written; returns it (None without runs).
 
-        With a mover: one batched descriptor per run, and the staged data
-        is the executor's output (on the card, after this stream waits on
-        each copy's ``done`` event).  Without one: one ``stream_copy`` per
-        run on the current stream (the kernel on the card, its plain
-        version on the CPU) and one telemetry record per run."""
+        With a mover: one batched descriptor per run, whose ``dst`` is the
+        run's view of the staging buffer (on the card the executor's
+        ``stream_executor`` copies a whole batch in one launch, and this
+        stream then waits on each copy's ``done`` event).  Without one:
+        one ``stream_copy_segments`` call for every run (the kernel on the
+        card, its plain version on the CPU) and one telemetry record per
+        run."""
         if not runs:
-            return []
+            return None
+        pr = self.page_rows
+        part = self.parts[0]
+        gather, _ = move_plan(runs)
+        n_staged = int(gather[:, 4].sum())
+        stage = torch.empty((n_staged * pr,) + tuple(part.shape[1:]),
+                            dtype=part.dtype, device=self.device)
         if mover is None:
-            from repro_torch.kernels.stream_copy.ops import stream_copy
-            page_bytes = self.page_rows * self.row_bytes
-            staged = []
-            for s, d, pages, l0 in runs:
+            page_bytes = pr * self.row_bytes
+            for s, d, pages, _ in runs:
                 telemetry.record_move(_route_name(names, s),
                                       _route_name(names, d),
                                       page_bytes * len(pages), 0.0,
                                       source=source)
-                slab = self._slab(s, l0, len(pages))
-                staged.append(stream_copy(
-                    slab, out=_empty(slab.shape, slab.dtype, d, self.backend,
-                                     self.device), device=self.device))
+            sc_ops.stream_copy_segments(
+                [p.view(-1) for p in self.parts], [stage.view(-1)],
+                element_segments(gather, self._page_elems()),
+                device=self.device)
         else:
-            staged = self._issue_runs(runs, names, mover=mover,
-                                      source=source, lane=lane)
-        if self.device.type == "cuda" and any(not t.is_cuda for t in staged):
-            # host-side landings below run on the CPU: the copies into
-            # pinned staging, and every kernel still reading the pinned
-            # shards, must have finished first
-            torch.cuda.current_stream(self.device).synchronize()
-        return staged
+            self._issue_runs(runs, names, stage, gather[:, 3], mover=mover,
+                             source=source, lane=lane)
+        return stage
 
-    def _issue_runs(self, runs, names, *, mover, source, lane
-                    ) -> list[torch.Tensor]:
-        """One descriptor per run through ``mover``; returns the executor's
-        outputs once this stream has waited on each copy's ``done``."""
+    def _page_elems(self) -> int:
+        return self.page_rows * int(np.prod(self.parts[0].shape[1:]))
+
+    def _issue_runs(self, runs, names, stage, offsets, *, mover, source,
+                    lane) -> None:
+        """One descriptor per run through ``mover``, each written into its
+        view of ``stage`` (``offsets``: the run's first staged page);
+        returns once this stream waits on every copy's ``done``."""
         ready = None
         if self.device.type == "cuda":
             ready = torch.cuda.Event()
             ready.record(torch.cuda.current_stream(self.device))
+        pr = self.page_rows
         descs = [
             Descriptor(
                 src_tier=_route_name(names, s),
@@ -778,44 +857,50 @@ class InterleavedTensor:
                 payload=self._slab(s, l0, len(pages)),
                 lane=LANE_BULK if lane is None else lane,
                 source=source,
-                dst=self._memory(d),
+                dst=stage[o * pr: (o + len(pages)) * pr],
                 ready=ready,
             )
-            for s, d, pages, l0 in runs
+            for (s, d, pages, l0), o in zip(runs, offsets.tolist())
         ]
         futures = mover.issue(descs)
         if mover.asynchronous:
             mover.wait_all()
-        staged = [f.result().result for f in futures]
+        for f in futures:
+            f.result()
         if self.device.type == "cuda":
             stream = torch.cuda.current_stream(self.device)
-            for desc in descs:
-                if desc.done is not None:
-                    stream.wait_event(desc.done)
-        return staged
+            for done in {id(d.done): d.done for d in descs
+                         if d.done is not None}.values():
+                stream.wait_event(done)
 
-    def _land(self, targets: dict, runs, staged, new_local: np.ndarray
-              ) -> None:
-        """Write each run's staged pages into its destination slots."""
-        pr = self.page_rows
-        feat = tuple(self.parts[0].shape[1:])
-        by_dst: dict[int, list] = {}
-        for (s, d, pages, l0), data in zip(runs, staged):
-            by_dst.setdefault(d, []).append((pages, data))
-        for d, items in by_dst.items():
-            target = targets[d]
-            rows = np.concatenate([
-                (new_local[pages].astype(np.int64)[:, None] * pr
-                 + np.arange(pr)).reshape(-1) for pages, _ in items])
-            rows_t = torch.as_tensor(rows, device=target.device)
-            off = 0
-            for pages, data in items:
-                n = len(pages) * pr
-                if data.is_cuda:
-                    data.record_stream(torch.cuda.current_stream(data.device))
-                donated_update(target, rows_t[off: off + n],
-                               data.reshape((n,) + feat), "set")
-                off += n
+    def _land(self, targets: Sequence[torch.Tensor], stage, runs,
+              new_local: np.ndarray, new_dev: np.ndarray,
+              keep: Optional[np.ndarray] = None, zero_fill=()) -> None:
+        """One ``stream_copy_segments`` call writes every staged page into
+        its destination slot of ``targets`` (one tensor per device
+        ordinal; consecutive slots coalesced).  The rebuild path adds
+        ``keep`` (page segments from old shard ``d`` into ``targets[d]``)
+        and ``zero_fill`` ((ordinal, first page, pages) spans of zeros)."""
+        _, landing = move_plan(runs, new_dev, new_local)
+        if keep is not None and len(keep):
+            keep = keep.copy()
+            keep[:, 0] += 2  # old shard d is source base 2 + d
+            landing = np.concatenate([landing, keep])
+        pe = self._page_elems()
+        segs = [element_segments(landing, pe)]
+        dtype = self.parts[0].dtype
+        zero = torch.zeros(pe if zero_fill else 0, dtype=dtype,
+                           device=self.device)
+        for d, p0, n in zero_fill:
+            # one zero page repeated: source row stride 0
+            segs.append(np.array([(1, 0, 0, d, p0 * pe, pe, n, pe)],
+                                 np.int64))
+        if stage is None:
+            stage = zero[:0]
+        srcs = [stage.view(-1), zero, *(p.view(-1) for p in self.parts)]
+        sc_ops.stream_copy_segments(srcs, [t.view(-1) for t in targets],
+                                    np.concatenate(segs),
+                                    device=self.device)
 
     def _reassign(self, new_dev: np.ndarray, names: tuple[str, ...], *,
                   mover=None, telemetry: Telemetry = GLOBAL_TELEMETRY,
@@ -833,24 +918,25 @@ class InterleavedTensor:
         new_counts = np.bincount(new_dev, minlength=n_devices)
         caps = self.capacity_pages
 
-        # Ship the movement first (payloads slice the CURRENT shards): one
-        # route-pure batched descriptor per contiguous run.  Every moved
-        # page is staged before any shard is written (ORDERING HAZARD: a
-        # leaving page's old slot counts as free and may be refilled).
+        # Gather the movement first (payloads slice the CURRENT shards)
+        # into one staging buffer: one route-pure batched descriptor per
+        # contiguous run.  The landing launch comes after every gather in
+        # stream order (ORDERING HAZARD: a leaving page's old slot counts
+        # as free and may be refilled).
         runs = self._move_runs(delta, old_dev, old_local, new_dev)
-        staged = self._ship_runs(runs, names, mover=mover,
-                                 telemetry=telemetry, source=source,
-                                 lane=lane)
+        stage = self._ship_runs(runs, names, mover=mover,
+                                telemetry=telemetry, source=source,
+                                lane=lane)
 
         stable = (self.headroom > 0 and n_devices == len(self.parts)
                   and all(int(new_counts[d]) <= caps[d]
                           for d in range(n_devices)))
         if stable:
             out = self._reassign_stable(delta, old_dev, old_local, new_dev,
-                                        runs, staged, donate=donate)
+                                        runs, stage, donate=donate)
         else:
             out = self._reassign_rebuild(old_dev, old_local, new_dev,
-                                         n_devices, runs, staged)
+                                         n_devices, runs, stage)
         final = dataclasses.replace(
             out, device_names=tuple(_route_name(names, d)
                                     for d in range(n_devices)))
@@ -859,7 +945,7 @@ class InterleavedTensor:
 
     def _reassign_stable(self, delta: np.ndarray, old_dev: np.ndarray,
                          old_local: np.ndarray, new_dev: np.ndarray,
-                         runs, staged, donate: bool = False
+                         runs, stage, donate: bool = False
                          ) -> "InterleavedTensor":
         """Shape-stable fast path: every moved page lands in a free slot
         of its destination shard — shard shapes and every unmoved page's
@@ -873,7 +959,6 @@ class InterleavedTensor:
         caps = self.capacity_pages
         recv = new_dev[delta]
         parts = list(self.parts)
-        targets = {}
         for d in np.unique(recv):
             d = int(d)
             incoming = delta[recv == d]
@@ -883,53 +968,43 @@ class InterleavedTensor:
             used[old_local[staying]] = True
             free = np.nonzero(~used)[0]
             new_local[incoming] = free[: incoming.size].astype(np.int32)
-            if donate:
-                targets[d] = parts[d]
-            else:
+            if not donate:
                 FULL_SHARD_COPIES.bump()
-                targets[d] = self._copy_shard(d)
-        self._land(targets, runs, staged, new_local)
-        for d, target in targets.items():
-            parts[d] = target
+                parts[d] = self._copy_shard(d)
+        self._land(parts, stage, runs, new_local, new_dev)
         out = dataclasses.replace(self, parts=tuple(parts),
                                   **self._maps(new_dev, new_local))
         out._with_map(new_dev, new_local)
         return out
 
     def _reassign_rebuild(self, old_dev: np.ndarray, old_local: np.ndarray,
-                          new_dev: np.ndarray, n_devices: int, runs, staged
+                          new_dev: np.ndarray, n_devices: int, runs, stage
                           ) -> "InterleavedTensor":
         """Exact-size (or grow) path: rebuild each shard at its new count
-        plus headroom.  Staying pages are copied over from their old
-        shard, moved pages land from their staged copies.  This is the
-        path that changes shapes and storage, by design (headroom
-        exhausted or the device set widened)."""
+        plus headroom.  One landing launch copies the staying pages over
+        from their old shard, lands the moved pages from the staging
+        buffer and zeroes the headroom.  This is the path that changes
+        shapes and storage, by design (headroom exhausted or the device
+        set widened)."""
         pr = self.page_rows
         feature = tuple(self.parts[0].shape[1:])
         dtype = self.parts[0].dtype
         dev2, local2, counts = device_page_map(new_dev, n_devices)
-        parts = []
+        parts, zero_fill = [], []
         for d in range(n_devices):
             cap = counts[d] + self.headroom
-            part = _empty((cap * pr,) + feature, dtype, d, self.backend,
-                          self.device)
+            parts.append(_empty((cap * pr,) + feature, dtype, d,
+                                self.backend, self.device))
             if cap == 0:
-                parts.append(part)
                 continue
             FULL_SHARD_COPIES.bump()
-            part.view((cap, pr) + feature)[counts[d]:].zero_()
-            stay = np.nonzero((old_dev == d) & (dev2 == d))[0]
-            if stay.size:
-                src = (old_local[stay].astype(np.int64)[:, None] * pr
-                       + np.arange(pr)).reshape(-1)
-                dst = (local2[stay].astype(np.int64)[:, None] * pr
-                       + np.arange(pr)).reshape(-1)
-                old = self.parts[d]
-                donated_update(part, torch.as_tensor(dst, device=part.device),
-                               old.index_select(0, torch.as_tensor(
-                                   src, device=old.device)), "set")
-            parts.append(part)
-        self._land(dict(enumerate(parts)), runs, staged, local2)
+            if self.headroom:
+                zero_fill.append((d, counts[d], self.headroom))
+        stay = np.nonzero(old_dev == dev2)[0]
+        stay = stay[np.lexsort((old_local[stay], old_dev[stay]))]
+        keep = page_segments(old_dev[stay], old_local[stay], dev2[stay],
+                             local2[stay])
+        self._land(parts, stage, runs, local2, dev2, keep, zero_fill)
         out = dataclasses.replace(self, parts=tuple(parts),
                                   **self._maps(dev2, local2))
         out._with_map(dev2, local2)

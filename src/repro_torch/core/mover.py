@@ -24,7 +24,11 @@ On the card, :func:`stream_executor` launches each copy on a side stream
 after the submitter's ``ready`` event and records a ``done`` event on the
 descriptor; whoever consumes the copy makes its own stream wait on that
 event (``torch.cuda.current_stream().wait_event``) — the host-side
-completion of a :class:`MoveFuture` only says the copy was enqueued.
+completion of a :class:`MoveFuture` only says the copy was enqueued.  A
+batch whose descriptors each name a tensor ``dst`` (a view of the
+caller's staging buffer) is one ``stream_copy`` launch for the whole
+batch (:attr:`stream_executor` ``.batch``); descriptors, billing,
+telemetry, futures and writer accounting stay one per descriptor.
 """
 from __future__ import annotations
 
@@ -98,8 +102,10 @@ class Descriptor:
     out_dtype: Optional[Any] = None
     #: per-descriptor completion handle, set by :meth:`BulkMover.issue`.
     future: Optional["MoveFuture"] = None
-    #: destination memory of the copy: a ``torch.device`` or ``PINNED``;
-    #: None keeps it beside the payload.  Neither billed nor batched on.
+    #: destination of the copy: a ``torch.device`` or ``PINNED`` (a new
+    #: tensor there), a tensor of the payload's shape (written in place:
+    #: a view of the caller's staging buffer), or None (a new tensor
+    #: beside the payload).  Neither billed nor batched on.
     dst: Optional[Any] = None
     #: CUDA event after which the payload holds its data (recorded on the
     #: submitter's stream); the executor's stream waits on it.
@@ -174,6 +180,8 @@ def _dest_kwargs(x: torch.Tensor, dst) -> dict:
 def _on_card(x: torch.Tensor, dst) -> bool:
     """A copy of ``x`` into ``dst`` is card work: either side in HBM or in
     pinned host memory."""
+    if isinstance(dst, torch.Tensor):
+        return x.is_cuda or x.is_pinned() or dst.is_cuda or dst.is_pinned()
     return x.is_cuda or x.is_pinned() or dst is not None
 
 
@@ -195,7 +203,8 @@ def _execute_copy(payload, out_dtype=None, desc: Optional[Descriptor] = None):
     def _copy(x):
         if isinstance(x, torch.Tensor) and _on_card(x, dst):
             raise ValueError("card memory moves through stream_executor()")
-        return _host_copy(x, out_dtype)
+        out = _host_copy(x, out_dtype)
+        return dst.copy_(out) if isinstance(dst, torch.Tensor) else out
 
     return _tree_map(_copy, payload)
 
@@ -205,13 +214,20 @@ def stream_executor(*, block_bytes_hint: int = 1 << 20
     """Executor that moves payloads through the CUDA ``stream_copy`` kernel.
 
     Tensors that lie on the card or in pinned host memory take the kernel,
-    written into a new tensor in the descriptor's ``dst`` memory (beside
-    the payload when ``dst`` is None).  The launch goes on a side stream
-    of the destination card (else the current one) that first waits on
-    the descriptor's ``ready`` event; a ``done`` event recorded after it
-    is left on the descriptor for the consumer to wait on.  Pageable host
-    tensors (the ``modeled`` backend) and numpy arrays take the plain
-    copy.  The returned callable is flagged ``pipelined`` so
+    written into the descriptor's ``dst`` tensor, else into a new tensor
+    in its ``dst`` memory (beside the payload when ``dst`` is None).  The
+    launch goes on a side stream of the destination card (else the
+    current one) that first waits on the descriptor's ``ready`` event; a
+    ``done`` event recorded after it is left on the descriptor for the
+    consumer to wait on.  Pageable host tensors (the ``modeled`` backend)
+    and numpy arrays take the plain copy.
+
+    Its ``batch`` attribute moves a whole batch in one
+    ``stream_copy_segments`` launch (one ``done`` event for all) when
+    every descriptor carries one contiguous tensor payload and a
+    contiguous ``dst`` tensor of its shape, one dtype a side; for any
+    other batch it returns None and the mover executes per descriptor.
+    The returned callable is flagged ``pipelined`` so
     ``BulkMover.modeled_cost`` switches to the overlapped-migration
     perfmodel.  It is the default executor of a mover on the card."""
     from repro_torch.kernels.stream_copy import ops as _stream_ops
@@ -226,39 +242,77 @@ def stream_executor(*, block_bytes_hint: int = 1 << 20
                 s = streams[device] = torch.cuda.Stream(device)
             return s
 
+    def _card(x: torch.Tensor, dst) -> torch.device:
+        """The card that runs a copy of ``x`` into ``dst``."""
+        if x.is_cuda:
+            return x.device
+        if isinstance(dst, torch.Tensor) and dst.is_cuda:
+            return dst.device
+        if dst is not None and not isinstance(dst, torch.Tensor) \
+                and dst != PINNED:
+            return torch.device(dst)
+        # pinned -> pinned, through the current card
+        return torch.device("cuda", torch.cuda.current_device())
+
+    def _launch(device, descs, copy) -> None:
+        """``copy()`` on ``device``'s side stream after every descriptor's
+        ``ready`` event; one ``done`` event for all of them."""
+        side = _side(device)
+        with torch.cuda.device(device), torch.cuda.stream(side):
+            for ready in {id(d.ready): d.ready for d in descs
+                          if d is not None and d.ready is not None}.values():
+                side.wait_event(ready)
+            copy()
+            ev = torch.cuda.Event()
+            ev.record(side)
+        for d in descs:
+            if d is not None:
+                d.done = ev
+
     def _execute(payload, out_dtype=None, desc: Optional[Descriptor] = None):
         dst = desc.dst if desc is not None else None
-        events = []
 
         def _copy(x):
             if isinstance(x, np.ndarray) or not _on_card(x, dst):
-                return _host_copy(x, out_dtype)
-            place = _dest_kwargs(x, dst)
-            if x.is_cuda:
-                device = x.device
-            elif dst is not None and dst != PINNED:
-                device = torch.device(dst)
-            else:  # pinned -> pinned, through the current card
-                device = torch.device("cuda", torch.cuda.current_device())
-            side = _side(device)
-            with torch.cuda.device(device), torch.cuda.stream(side):
-                if desc is not None and desc.ready is not None:
-                    side.wait_event(desc.ready)
-                out = torch.empty(x.shape, dtype=out_dtype or x.dtype,
-                                  **place)
-                _stream_ops.stream_copy(x, out=out, device=device)
-                ev = torch.cuda.Event()
-                ev.record(side)
-            events.append(ev)
+                out = _host_copy(x, out_dtype)
+                return dst.copy_(out) if isinstance(dst, torch.Tensor) else out
+            device = _card(x, dst)
+            out = dst if isinstance(dst, torch.Tensor) else torch.empty(
+                x.shape, dtype=out_dtype or x.dtype, **_dest_kwargs(x, dst))
+            _launch(device, [desc], lambda: _stream_ops.stream_copy(
+                x, out=out, device=device))
             return out
 
-        out = _tree_map(_copy, payload)
-        if desc is not None and events:
-            desc.done = events[-1]
-        return out
+        return _tree_map(_copy, payload)
+
+    def _batch(descs: Sequence[Descriptor]) -> Optional[list]:
+        srcs = [d.payload for d in descs]
+        dsts = [d.dst for d in descs]
+        if not descs or not all(
+                isinstance(x, torch.Tensor) and isinstance(o, torch.Tensor)
+                and x.shape == o.shape and x.is_contiguous()
+                and o.is_contiguous()
+                and (d.out_dtype is None or d.out_dtype == o.dtype)
+                for x, o, d in zip(srcs, dsts, descs)):
+            return None
+        if len({x.dtype for x in srcs}) > 1 or len({o.dtype for o in dsts}) > 1:
+            return None
+        numel = np.fromiter((x.numel() for x in srcs), np.int64, len(srcs))
+        segs = np.zeros((len(descs), 8), np.int64)
+        segs[:, 0] = segs[:, 3] = np.arange(len(descs))
+        segs[:, 2] = segs[:, 5] = segs[:, 7] = numel
+        segs[:, 6] = 1
+        if not any(_on_card(x, o) for x, o in zip(srcs, dsts)):
+            _stream_ops.stream_copy_segments(srcs, dsts, segs)
+            return dsts
+        device = _card(srcs[0], dsts[0])
+        _launch(device, descs, lambda: _stream_ops.stream_copy_segments(
+            srcs, dsts, segs, device=device))
+        return dsts
 
     _execute.pipelined = True
     _execute.block_bytes = block_bytes_hint
+    _execute.batch = _batch
     return _execute
 
 
@@ -418,9 +472,16 @@ class BulkMover:
 
     # -- execution -----------------------------------------------------------
     def _run_batch(self, batch: list[Descriptor]) -> list[Completion]:
+        """Execute one route-pure batch: through the executor's ``batch``
+        entry (one launch for all, made under the first descriptor's
+        writer slot) when it takes the batch, else per descriptor.
+        Semaphores, watermarks, telemetry, callbacks and futures are per
+        descriptor either way."""
         out = []
         modeled = self.modeled_cost(batch)
-        for d in batch:
+        batched = getattr(self._execute, "batch", None)
+        results = None
+        for i, d in enumerate(batch):
             writes_slow = self._tier(d.dst_tier).link_bw is not None
             sem = (self._write_sem_for(d.dst_tier) if writes_slow
                    else self._read_sem)
@@ -438,8 +499,13 @@ class BulkMover:
                             self._active_by_dev[dev])
                 t0 = time.perf_counter()
                 try:
-                    args = (d.payload, d.out_dtype, d)[:self._execute_args]
-                    result = self._execute(*args)
+                    if i == 0 and batched is not None:
+                        results = batched(batch)
+                    if results is not None:
+                        result = results[i]
+                    else:
+                        args = (d.payload, d.out_dtype, d)[:self._execute_args]
+                        result = self._execute(*args)
                 finally:
                     if writes_slow:
                         with self._writer_lock:

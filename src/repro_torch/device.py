@@ -64,3 +64,14 @@ def shard_storage(ordinal: int, backend: str, device: torch.device) -> dict:
     if backend == "pinned" and ordinal > 0:
         return {"device": "cpu", "pin_memory": True}
     return {"device": device}
+
+
+def host_to_device(array, dtype: torch.dtype,
+                   device: torch.device) -> torch.Tensor:
+    """``torch.as_tensor(array, dtype=dtype, device=device)`` for host-built
+    metadata (maps, segment tables); on a card the copy goes through
+    pinned memory and does not make the host wait for the stream."""
+    if device.type != "cuda":
+        return torch.as_tensor(array, dtype=dtype, device=device)
+    host = torch.as_tensor(array).to(dtype)
+    return host.pin_memory().to(device, non_blocking=True)

@@ -3,13 +3,26 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
+from repro_torch.device import host_to_device
 from repro_torch.kernels import common
 
 _argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
              ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_seg_argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                 ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+#: columns of a segment list (``ops.stream_copy_segments``): source base,
+#: element offset into it, source row stride, destination base, offset,
+#: destination row stride, rows, cols (offsets and strides in elements of
+#: each side's dtype)
+SRC, SRC_OFF, SRC_STRIDE, DST, DST_OFF, DST_STRIDE, ROWS, COLS = range(8)
+#: flags of a launch-table row: rows 16-byte aligned on both sides, source
+#: in host memory, destination in host memory
+VEC, SRC_HOST, DST_HOST = 1, 2, 4
 
 
 def _lib():
@@ -20,18 +33,22 @@ def _lib():
     return fn
 
 
+def _seg_lib():
+    lib = common.load("stream_copy")
+    fn = lib.repro_stream_copy_segments
+    fn.argtypes = _seg_argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def row_strided(t: torch.Tensor) -> bool:
     """A 2-D tensor whose rows are contiguous (any row stride)."""
     return t.ndim == 2 and (t.stride(1) == 1 or t.shape[1] <= 1)
 
 
-def stream_copy(src: torch.Tensor, out: torch.Tensor,
-                device: torch.device) -> torch.Tensor:
-    """Copy ``src`` into ``out`` (same shape, any of HBM or pinned host
-    memory on either side) with the cast to ``out.dtype`` fused in,
-    launched on ``device``'s current stream.  Both contiguous (one row of
-    ``numel`` elements), or both 2-D with contiguous rows (each with its
-    own row stride)."""
+def slab_args(src: torch.Tensor, out: torch.Tensor) -> tuple:
+    """``repro_stream_copy``'s arguments between the two pointers and the
+    stream: rows, cols, row strides, dtype codes, itemsize, vec."""
     if src.shape != out.shape:
         raise ValueError(f"shape mismatch {tuple(src.shape)} -> {tuple(out.shape)}")
     if src.is_contiguous() and out.is_contiguous():
@@ -50,10 +67,109 @@ def stream_copy(src: torch.Tensor, out: torch.Tensor,
     # every row starts on a 16-byte boundary on both sides
     vec = int(all(x % 16 == 0 for x in (src.data_ptr(), out.data_ptr(),
                                          ss * item, ds * out.element_size())))
-    err = _lib()(src.data_ptr(), out.data_ptr(), rows, cols, ss, ds, s_code,
-                 d_code, item, vec, common.stream_handle(device))
+    return rows, cols, ss, ds, s_code, d_code, item, vec
+
+
+def stream_copy(src: torch.Tensor, out: torch.Tensor,
+                device: torch.device) -> torch.Tensor:
+    """Copy ``src`` into ``out`` (same shape, any of HBM or pinned host
+    memory on either side) with the cast to ``out.dtype`` fused in,
+    launched on ``device``'s current stream: one segment of the
+    segment-list kernel.  Both contiguous (one row of ``numel``
+    elements), or both 2-D with contiguous rows (each with its own row
+    stride)."""
+    args = slab_args(src, out)
+    err = _lib()(src.data_ptr(), out.data_ptr(), *args,
+                 common.stream_handle(device))
     common.check(err, "stream_copy launch")
     return out
+
+
+def _bases(tensors, what: str) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(addresses, element counts, host flags) of a side's base tensors,
+    which must be contiguous and of one dtype."""
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError(f"stream_copy_segments: {what} bases must be "
+                         "contiguous")
+    if len({t.dtype for t in tensors}) > 1:
+        raise ValueError(f"stream_copy_segments: one {what} dtype a launch")
+    return (np.fromiter((t.data_ptr() for t in tensors), np.int64,
+                        len(tensors)),
+            np.fromiter((t.numel() for t in tensors), np.int64, len(tensors)),
+            np.fromiter((not t.is_cuda for t in tensors), bool, len(tensors)))
+
+
+def launch_table(srcs, dsts, segs: np.ndarray
+                 ) -> tuple[np.ndarray, np.ndarray, int, int]:
+    """The kernel's view of a segment list: its table (one row of 8 int64
+    per segment: source and destination addresses, rows, cols, row
+    strides, flags; for equal dtypes in bytes), the prefix sum of its
+    16-byte source units, and the launch's dtype codes.  Raises on a
+    segment that reaches outside its bases."""
+    segs = np.asarray(segs, np.int64).reshape(-1, 8)
+    s_item, d_item = srcs[0].element_size(), dsts[0].element_size()
+    s_ptr, s_numel, s_host = _bases(srcs, "source")
+    d_ptr, d_numel, d_host = _bases(dsts, "destination")
+    si, di = segs[:, SRC], segs[:, DST]
+    rows, cols = segs[:, ROWS], segs[:, COLS]
+    live = (rows > 0) & (cols > 0)
+    last_s = segs[:, SRC_OFF] + (rows - 1) * segs[:, SRC_STRIDE] + cols
+    last_d = segs[:, DST_OFF] + (rows - 1) * segs[:, DST_STRIDE] + cols
+    bad = live & ((si < 0) | (si >= len(srcs)) | (di < 0) | (di >= len(dsts)))
+    if bad.any():
+        raise ValueError("stream_copy_segments: base index out of range")
+    si, di = np.where(live, si, 0), np.where(live, di, 0)
+    if (live & ((segs[:, SRC_OFF] < 0) | (segs[:, DST_OFF] < 0)
+                | (segs[:, SRC_STRIDE] < 0)
+                | ((rows > 1) & (segs[:, DST_STRIDE] < cols))
+                | (last_s > s_numel[si]) | (last_d > d_numel[di]))).any():
+        raise ValueError("stream_copy_segments: a segment reaches outside "
+                         "its bases")
+    if srcs[0].dtype == dsts[0].dtype:
+        s_code = d_code = 0
+        scale, vec_elems = s_item, 16  # bytes
+    else:
+        s_code = common.dtype_code(srcs[0].dtype)
+        d_code = common.dtype_code(dsts[0].dtype)
+        scale, vec_elems = 1, 16 // s_item
+    table = np.zeros((len(segs), 8), np.int64)
+    table[:, 0] = s_ptr[si] + segs[:, SRC_OFF] * s_item
+    table[:, 1] = d_ptr[di] + segs[:, DST_OFF] * d_item
+    table[:, 2] = np.where(live, rows, 0)
+    table[:, 3] = np.where(live, cols * scale, 0)
+    table[:, 4] = segs[:, SRC_STRIDE] * scale
+    table[:, 5] = segs[:, DST_STRIDE] * scale
+    # every row starts on a 16-byte boundary on both sides (the strides
+    # of a one-row segment do not matter)
+    many = rows > 1
+    aligned = ((table[:, 0] | table[:, 1]
+                | np.where(many, segs[:, SRC_STRIDE] * s_item, 0)
+                | np.where(many, segs[:, DST_STRIDE] * d_item, 0)) % 16) == 0
+    table[:, 6] = (aligned * VEC + s_host[si] * SRC_HOST
+                   + d_host[di] * DST_HOST)
+    units = table[:, 2] * ((table[:, 3] + vec_elems - 1) // vec_elems)
+    prefix = np.zeros(len(segs) + 1, np.int64)
+    np.cumsum(units, out=prefix[1:])
+    return table, prefix, s_code, d_code
+
+
+def stream_copy_segments(srcs, dsts, segs: np.ndarray,
+                         device: torch.device) -> int:
+    """One launch that moves every segment of ``segs`` (see
+    :func:`launch_table`) on ``device``'s current stream.  Returns the
+    units moved (0: nothing was launched)."""
+    table, prefix, s_code, d_code = launch_table(srcs, dsts, segs)
+    total = int(prefix[-1])
+    if total == 0:
+        return 0
+    # the table reaches the card in one copy, without a host wait
+    buf = host_to_device(np.concatenate([table.reshape(-1), prefix]),
+                         torch.int64, device)
+    ptr = buf.data_ptr()
+    err = _seg_lib()(ptr, ptr + table.size * 8, len(table), total, s_code,
+                     d_code, common.stream_handle(device))
+    common.check(err, "stream_copy_segments launch")
+    return total
 
 
 def pointer_info(t: torch.Tensor) -> tuple[int, int]:

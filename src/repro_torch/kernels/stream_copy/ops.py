@@ -1,14 +1,17 @@
-"""Public wrapper for the streaming migration copy.
+"""Public wrappers for the streaming migration copy: one slab
+(:func:`stream_copy`) or a list of segments in one launch
+(:func:`stream_copy_segments`).
 
-On the card (a CUDA or pinned host tensor on either side) it launches the
-CUDA kernel or raises; routes are HBM->HBM, pinned host->HBM, HBM->pinned
-host and pinned->pinned.  The plain version runs only when both sides lie
-in pageable host memory.  ``LAUNCHES`` counts kernel launches and nothing
-else."""
+On the card (a CUDA or pinned host tensor on either side) they launch the
+CUDA kernel or raise; routes are HBM->HBM, pinned host->HBM, HBM->pinned
+host and pinned->pinned.  The plain versions run only when every tensor
+lies in pageable host memory.  ``LAUNCHES`` counts kernel launches and
+nothing else."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import common
@@ -40,3 +43,22 @@ def stream_copy(src: torch.Tensor, *, out_dtype: Optional[torch.dtype] = None,
     kernel.stream_copy(src, out, device)
     LAUNCHES.bump()
     return out
+
+
+def stream_copy_segments(srcs: Sequence[torch.Tensor],
+                         dsts: Sequence[torch.Tensor], segs: np.ndarray, *,
+                         device=None) -> None:
+    """Every segment of ``segs`` in one launch: row ``i`` (int64 columns
+    ``kernel.SRC`` ... ``kernel.COLS``) copies ``rows x cols`` elements of
+    base ``srcs[SRC]``, starting ``SRC_OFF`` elements in with rows
+    ``SRC_STRIDE`` apart (0 repeats one row), into ``dsts[DST]`` likewise,
+    cast to the destinations' dtype.  The bases are contiguous, one dtype
+    a side, in HBM or pinned host memory; segments must not overlap a
+    source or each other's destinations.  ``device`` as for
+    :func:`stream_copy`."""
+    live = [t for t in (*srcs, *dsts) if t.numel()]
+    device = common.card_device(*live, device=device)
+    if device is None:
+        ref.stream_copy_segments(srcs, dsts, segs)
+    elif kernel.stream_copy_segments(srcs, dsts, segs, device):
+        LAUNCHES.bump()
