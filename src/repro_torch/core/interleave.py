@@ -585,6 +585,7 @@ class InterleavedTensor:
         if self.device.type == "cuda" and any(not p.is_cuda
                                               for p in self.parts):
             torch.cuda.current_stream(self.device).synchronize()
+            sc_ops.HELD.release()
 
     def _scatter_masked(self, idx, values, op: str) -> "InterleavedTensor":
         """The N-pass formulation: every shard scatters the whole batch,

@@ -262,15 +262,16 @@ H100_HOST_PINNED = TierSpec(
     kind="host",
     capacity_bytes=96 * GiB,  # host RAM of a one-card machine; awaiting MEMO
     # measured: the segment-list stream_copy pinned->HBM on a 256 MiB
-    # slab, chip_smoke phase 3, NVIDIA H100 80GB HBM3 at 700 W (30.47 GB/s
-    # in another run; tools/stream_copy_probe.py read 51.3 GB/s on another
-    # machine; random 256 B rows read in place by embedding_reduce's
-    # cp.async ring: 28.25 GB/s, phase 2)
-    load_bw=27.41 * GB,
+    # slab, chip_smoke.py phase 3, NVIDIA H100 80GB HBM3 at 700 W; the
+    # median of three runs on three machines (27.41, 30.47, 33.88 GB/s;
+    # tools/stream_copy_probe.py read 51.3 on a fourth).  Random 256 B rows
+    # read in place by embedding_reduce's cp.async ring: 28.25 GB/s.
+    load_bw=30.47 * GB,
     store_bw=H100_PCIE_BW,  # awaiting MEMO
     # measured: the segment-list stream_copy HBM->pinned on a 256 MiB
-    # slab, chip_smoke phase 3, NVIDIA H100 80GB HBM3 at 700 W
-    nt_store_bw=44.21 * GB,
+    # slab, chip_smoke.py phase 3, NVIDIA H100 80GB HBM3 at 700 W; the
+    # median of the same three runs (44.21, 52.26, 52.57 GB/s)
+    nt_store_bw=52.26 * GB,
     load_latency_ns=1_500.0,  # placeholder: awaiting MEMO measure mode
     chase_latency_ns=1_500.0,  # placeholder: awaiting MEMO measure mode
     load_peak_streams=132,  # awaiting MEMO

@@ -28,9 +28,10 @@
 //   while its next units stay inside it.
 // * Bytes in flight: each thread issues SC_U independent 16-byte loads
 //   (the unit at the thread's lane, then THREADS units further, ...)
-//   before any of its stores; SC_BPS blocks an SM bound the registers.  Loads from host memory take the flavour
-//   SC_LD_HOST, loads from HBM SC_LD_HBM (0 .ca, 1 .cg, 2 .nc with the
-//   L2::128B prefetch hint, 3 .nc with L2::256B, 4 .nc).
+//   before any of its stores; SC_BPS blocks an SM bound the registers.
+//   Loads from host memory are ld.global.ca, loads from HBM
+//   ld.global.nc (.cg and the L2 prefetch hints read no faster;
+//   PERF.md).
 // * A unit of a segment whose rows start 16-byte aligned on both sides
 //   (the host's flag) moves as one vector; the last, partial unit of a
 //   row and every unit of an unaligned segment move element by element.
@@ -57,12 +58,6 @@
 #endif
 #ifndef SC_BPS
 #define SC_BPS 4
-#endif
-#ifndef SC_LD_HOST
-#define SC_LD_HOST 0
-#endif
-#ifndef SC_LD_HBM
-#define SC_LD_HBM 4
 #endif
 #ifndef SC_BULK
 #define SC_BULK 4096
@@ -94,20 +89,12 @@ struct Seg {
 static_assert(sizeof(Seg) == 64, "segment table row is 8 int64");
 constexpr int64_t SEG_VEC = 1, SEG_SRC_HOST = 2, SEG_DST_HOST = 4;
 
-template <int FLAVOUR>
+// 16 bytes from pinned host memory (through L1) or from HBM (read-only).
+template <bool HOST>
 __device__ __forceinline__ uint4 load16(const void* p) {
   uint4 v;
-  if constexpr (FLAVOUR == 0) {
+  if constexpr (HOST) {
     asm volatile("ld.global.ca.v4.u32 {%0,%1,%2,%3}, [%4];"
-                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));
-  } else if constexpr (FLAVOUR == 1) {
-    asm volatile("ld.global.cg.v4.u32 {%0,%1,%2,%3}, [%4];"
-                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));
-  } else if constexpr (FLAVOUR == 2) {
-    asm volatile("ld.global.nc.L2::128B.v4.u32 {%0,%1,%2,%3}, [%4];"
-                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));
-  } else if constexpr (FLAVOUR == 3) {
-    asm volatile("ld.global.nc.L2::256B.v4.u32 {%0,%1,%2,%3}, [%4];"
                  : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));
   } else {
     asm volatile("ld.global.nc.v4.u32 {%0,%1,%2,%3}, [%4];"
@@ -224,8 +211,8 @@ __device__ __forceinline__ void move_units(int64_t u0, int64_t u1, Cursor& c,
           flags = c.s.flags;
         }
         if ((flags & SEG_VEC) && n == VEC) {
-          v[j] = (flags & SEG_SRC_HOST) ? load16<SC_LD_HOST>(sp)
-                                        : load16<SC_LD_HBM>(sp);
+          v[j] = (flags & SEG_SRC_HOST) ? load16<true>(sp)
+                                        : load16<false>(sp);
           vec[j] = true;
         } else {
           // a partial or unaligned unit (rare): element by element, now

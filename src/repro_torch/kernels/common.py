@@ -14,6 +14,7 @@ version only for tensors that lie on the CPU.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -50,6 +51,45 @@ class LaunchCounter:
     def reset(self) -> int:
         out, self.count = self.count, 0
         return out
+
+
+class HostHold:
+    """Host tensors that queued kernels read or write in place (pinned
+    memory, through unified addressing), each kept alive until an event
+    recorded after its launch has completed.
+
+    PyTorch's caching host allocator does not see such kernel accesses:
+    a pinned block freed while a launch that reads it is still queued goes
+    straight back to the pool, and the next ``pin_memory()`` may get it
+    and overwrite it from the host before the kernel has read it.  Holds
+    are released oldest first, at the next :meth:`keep` or
+    :meth:`release`."""
+
+    def __init__(self) -> None:
+        self._held: collections.deque = collections.deque()
+        self._lock = threading.Lock()
+
+    def __len__(self) -> int:
+        return len(self._held)
+
+    def keep(self, tensors: Iterable[torch.Tensor], event) -> None:
+        """Hold ``tensors`` until ``event`` (a ``torch.cuda.Event``
+        recorded after the launch, or anything with ``query()``) has
+        completed."""
+        tensors = tuple(tensors)
+        with self._lock:
+            self._release()
+            if tensors:
+                self._held.append((event, tensors))
+
+    def release(self) -> None:
+        """Drop every hold whose launch has completed, oldest first."""
+        with self._lock:
+            self._release()
+
+    def _release(self) -> None:
+        while self._held and self._held[0][0].query():
+            self._held.popleft()
 
 
 def nvcc_path() -> str:

@@ -6,7 +6,9 @@ On the card (a CUDA or pinned host tensor on either side) they launch the
 CUDA kernel or raise; routes are HBM->HBM, pinned host->HBM, HBM->pinned
 host and pinned->pinned.  The plain versions run only when every tensor
 lies in pageable host memory.  ``LAUNCHES`` counts kernel launches and
-nothing else."""
+nothing else; ``HELD`` keeps every pinned operand of a launch alive until
+the launch has run, so that a caller may drop it at once (a move's old
+shards)."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -19,6 +21,19 @@ from repro_torch.kernels.stream_copy import kernel, ref
 
 #: kernel launches (never bumped by the plain version).
 LAUNCHES = common.LaunchCounter()
+#: pinned operands of launches that may still be queued.
+HELD = common.HostHold()
+
+
+def _launched(tensors, device: torch.device) -> None:
+    """Count a launch just queued on ``device``'s current stream and hold
+    its pinned operands until it has run."""
+    LAUNCHES.bump()
+    host = [t for t in tensors if not t.is_cuda]
+    if host:
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(device))
+        HELD.keep(host, event)
 
 
 def stream_copy(src: torch.Tensor, *, out_dtype: Optional[torch.dtype] = None,
@@ -41,7 +56,7 @@ def stream_copy(src: torch.Tensor, *, out_dtype: Optional[torch.dtype] = None,
     if src.numel() == 0:
         return out
     kernel.stream_copy(src, out, device)
-    LAUNCHES.bump()
+    _launched((src, out), device)
     return out
 
 
@@ -61,4 +76,4 @@ def stream_copy_segments(srcs: Sequence[torch.Tensor],
     if device is None:
         ref.stream_copy_segments(srcs, dsts, segs)
     elif kernel.stream_copy_segments(srcs, dsts, segs, device):
-        LAUNCHES.bump()
+        _launched((*srcs, *dsts), device)

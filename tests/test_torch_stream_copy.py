@@ -7,8 +7,12 @@ both loses and receives pages, the rebuild path, ragged runs, a bf16
 table; without a mover, through a mover's default executor and through
 ``stream_executor``'s batch entry); the plain segment-list version equals
 the reference's Pallas ``stream_copy`` (interpret mode) on each segment;
-the kernel wrapper's launch layout for a walk-shaped plan.  On a CUDA
-card only: the kernel against the plain version."""
+the kernel wrapper's launch layout for a walk-shaped plan; the hold that
+keeps a launch's pinned operands alive until it has run.  On a CUDA card
+only: the kernel against the plain version, and a move's old pinned shard
+dropped and its memory pinned again while the move is still queued."""
+import weakref
+
 import numpy as np
 import pytest
 
@@ -337,6 +341,45 @@ def test_mover_batch_writes_the_named_views():
     assert bad is None  # a tuple payload takes the per-descriptor path
 
 
+class _Event:
+    """A stand-in for a CUDA event: complete once ``done`` is set."""
+
+    def __init__(self) -> None:
+        self.done = False
+
+    def query(self) -> bool:
+        return self.done
+
+
+def test_host_hold_releases_oldest_first_once_launches_ran():
+    hold = common.HostHold()
+    a, b, c = torch.zeros(4), torch.ones(4), torch.full((4,), 2.0)
+    gone = weakref.ref(a)
+    events = [_Event() for _ in range(3)]
+    for t, ev in zip((a, b, c), events):
+        hold.keep([t], ev)
+    del a
+    assert gone() is not None and len(hold) == 3
+    events[1].done = True
+    hold.release()
+    assert len(hold) == 3  # the oldest launch is still queued
+    events[0].done = True
+    hold.release()
+    assert gone() is None and len(hold) == 1
+    events[2].done = True
+    hold.keep([], _Event())  # a keep releases too; nothing new to hold
+    assert len(hold) == 0
+
+
+def test_plain_version_holds_nothing():
+    held = len(t_sc.HELD)
+    src, dst = torch.arange(64.0), torch.zeros(64)
+    t_sc.stream_copy_segments([src], [dst], np.array(
+        [(0, 0, 0, 0, 0, 0, 1, 64)], np.int64))
+    t_sc.stream_copy(src, out=dst)
+    assert torch.equal(dst, src) and len(t_sc.HELD) == held
+
+
 # -- on the card ------------------------------------------------------------------
 @pytest.fixture
 def cuda():
@@ -395,4 +438,25 @@ def test_card_move_has_no_host_wait_and_lands_in_place(cuda, monkeypatch):
     assert t_sc.LAUNCHES.count == 2 and waits == []
     monkeypatch.undo()
     assert [p.data_ptr() for p in t.parts] == ptrs
+    assert torch.equal(t.to_array().cpu(), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("headroom", [0, 32])
+def test_dropped_pinned_shard_outlives_the_queued_move(cuda, headroom):
+    """The card is held busy, then a move that reads the old pinned shard
+    is queued (headroom 0: the rebuild's landing; 32: the copy of the
+    receiving shard, not donated).  The caller drops the old tensor at
+    once and pins host memory of the shard's size and overwrites it: the
+    moved values are still the old shard's."""
+    x = torch.arange(64 * 8 * 4, dtype=torch.float32).reshape(-1, 4)
+    t = TIT.from_array(x, TPolicy.weighted(("fast", "slow"), (1, 1)), 8,
+                       headroom=headroom, device=cuda)
+    n = t.parts[1].numel()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of work queued ahead
+    t = t.repartition_fraction(0.75, telemetry=TTel(), donate=False)
+    grabbed = [torch.empty(n, pin_memory=True).fill_(-1.0) for _ in range(4)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, torch.full_like(g, -1.0)) for g in grabbed)
     assert torch.equal(t.to_array().cpu(), x)

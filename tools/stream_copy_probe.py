@@ -9,8 +9,7 @@ first.  Not part of the port: it calls the kernel's C entry points itself.
 
 The sweep builds variants of ``src/repro_torch/csrc/stream_copy.cu``
 through the build-time options the source defines (``SC_U`` loads a
-thread keeps in flight, ``SC_LD_HOST`` / ``SC_LD_HBM`` the load flavour
-from pinned host memory and from HBM, ``SC_BPS`` blocks an SM,
+thread keeps in flight, ``SC_BPS`` blocks an SM,
 ``SC_BULK`` the ``cp.async.bulk`` ring for row pieces of that many bytes
 or more, ``SC_BULK_RANGE`` the bytes a block's range needs for it,
 ``SC_STAGES`` and ``SC_CHUNK`` its ring; into ``build/probe_stream_copy/``, one ``nvcc`` each, in
@@ -66,9 +65,6 @@ VARIANTS = (
     ("u8_bps2", ("-DSC_U=8", "-DSC_BPS=2")),
     ("no_bulk", ("-DSC_BULK=0",)),
     ("no_bulk_u8_bps2", ("-DSC_BULK=0", "-DSC_U=8", "-DSC_BPS=2")),
-    ("no_bulk_host_cg", ("-DSC_BULK=0", "-DSC_LD_HOST=1")),
-    ("no_bulk_host_nc_l2_256", ("-DSC_BULK=0", "-DSC_LD_HOST=3")),
-    ("no_bulk_hbm_cg", ("-DSC_BULK=0", "-DSC_LD_HBM=1")),
     ("bulk_64k", ("-DSC_BULK=65536",)),
     ("bulk_s8_c4k", ("-DSC_STAGES=8", "-DSC_CHUNK=4096")),
 )
