@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one H100.
 
-    python3 chip_smoke.py            # the three slices: DLRM table, serving, rwkv
-    python3 chip_smoke.py --sweep    # and a static slow-fraction sweep
+    python3 chip_smoke.py            # the three slices and the figures
 
 It needs a CUDA card and the checkout's ``src/`` beside it, and fails
 (non-zero exit, no result line) otherwise.  Phases, each raising on a
@@ -41,8 +40,10 @@ wrong result or a missing kernel launch:
    reset right before the walk and read right after it;
    ``embedding_reduce``'s must equal the walk's ``bag_reduce`` calls and
    ``stream_copy``'s stay within the same bound summed over its moves.
-   ``--sweep`` then measures bags/s at fixed slow fractions (not part of
-   the main path).
+   Then a static sweep measures bags/s at 0-0.25 slow and at the walk's
+   landing point, and prints fig11's three bounds against it as values
+   (landing within 0.05 of the best static fraction, at least
+   membind-fast, at least 0.95 of the best static rate).
 5. ``decode_attention`` against its plain version, both forms, fp32 and
    bf16, K/V in HBM and in pinned host memory, ragged lengths (1 and T),
    a fully masked partition row, stablelm-12b's head dim 160,
@@ -83,6 +84,19 @@ wrong result or a missing kernel launch:
    plain recurrence, and a decode replay of 8 tokens against ``forward``
    over the prompt and those tokens.  ``--profile`` also profiles a few of
    its decode steps.
+
+9. the figures: the port's figure scripts (``repro_torch.benchmarks``) on
+   the card at the reference's sizes, each asserting the reference's
+   claims: fig8 (its measured row one routed ``embedding_reduce`` launch
+   over an HBM and a pinned shard, held to the dense sum), fig10 (its
+   actuation through ``stream_copy`` over an HBM and two pinned shards),
+   fig11 (its audit through the default mover's ``stream_copy``, within
+   the launch bound, and one shard binding across its walk), fig11's
+   control plane (smoke), ``bench_hotpaths`` (smoke, with its speedup
+   gates) and ``bench_serving`` (smoke: tokens equal across the four
+   modes, ``decode_attention`` every decode step).  Prints every row,
+   each script's seconds and launches, and the phase's launches by
+   kernel.
 
 Prints the card line, per-phase lines, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.
@@ -654,12 +668,13 @@ def routed_vs_per_shard(it, idx, label: str) -> dict:
     return {"routed_ms": r_ms, "per_shard_ms": s_ms, "bound_ms": bound}
 
 
-def phase_slice(stats: dict, rows_log2: int, sweep: bool) -> dict:
+def phase_slice(stats: dict, rows_log2: int) -> dict:
     global BAG_CALLS
     import torch
     from repro_torch.core import (BulkMover, CaptionConfig, CaptionController,
                                   EpochMetrics, InterleavedTensor, MemPolicy,
                                   h100_topology, stream_executor)
+    from repro_torch.benchmarks.common import launch_bound
     from repro_torch.core.donation import FULL_SHARD_COPIES
     from repro_torch.core.telemetry import Telemetry
     from repro_torch.kernels.embedding_reduce import ops as er_ops, ref as er_ref
@@ -783,7 +798,7 @@ def phase_slice(stats: dict, rows_log2: int, sweep: bool) -> dict:
             assert delta > 0 and billed == delta * page_bytes, (billed, delta)
             assert descs < delta, (descs, delta)
             # one gather launch per batch of 16 descriptors, one landing
-            assert 0 < sc_launches <= launch_bound(descs), (sc_launches,
+            assert 0 < sc_launches <= launch_bound([descs]), (sc_launches,
                                                             descs)
             for b, w in zip(batches, want):
                 assert torch.equal(it.bag_reduce(b), w), f
@@ -792,7 +807,7 @@ def phase_slice(stats: dict, rows_log2: int, sweep: bool) -> dict:
             assert FULL_SHARD_COPIES.count == 0
             log(f"phase4/audit/f{f:.2f},delta_pages={delta},billed={billed},"
                 f"descriptors={descs},stream_copy_launches={sc_launches},"
-                f"launch_bound={launch_bound(descs)},seconds={act_s:.3f},"
+                f"launch_bound={launch_bound([descs])},seconds={act_s:.3f},"
                 f"GBps={billed / act_s / 1e9:.2f},bags_bit_equal=1,"
                 f"data_ptr_same=1,full_shard_copies=0")
 
@@ -820,7 +835,7 @@ def phase_slice(stats: dict, rows_log2: int, sweep: bool) -> dict:
                                          fast_tier=fast, slow_tier=slow,
                                          donate=True)
             torch.cuda.synchronize()
-            walk_bound += launch_bound(mover.descriptors_submitted - d0)
+            walk_bound += launch_bound([mover.descriptors_submitted - d0])
             ctl.actuated(it.slow_fraction())
             trajectory.append((epoch, round(it.slow_fraction(), 4), rate))
             log(f"phase4/walk/epoch{epoch:02d},f={it.slow_fraction():.4f},"
@@ -845,13 +860,12 @@ def phase_slice(stats: dict, rows_log2: int, sweep: bool) -> dict:
         f"stream_copy_launch_bound={walk_bound}")
     for name, count in launches.items():
         assert count > 0, f"{name} was never launched on the main path"
-    landed = it.slow_fraction()
-    if sweep:
-        sweep_fractions(it, batches, want, landed)
+    bounds = sweep_fractions(it, batches, want, it.slow_fraction())
     run = stats["walk/hbm->pinned"]
     slab = stats[f"copy/hbm->pinned/{16 * PAGE_ROWS}"]
     return {
         "launches": launches,
+        "fig11_bounds": bounds,
         "er": {"ms": r_ms, "plain_ms": rp_ms, "library_ms": rl_ms,
                "bound_ms": r_bound, "table_ms": k_ms,
                "table_bound_ms": er_bound, "table_library_ms": l_ms,
@@ -867,16 +881,17 @@ def phase_slice(stats: dict, rows_log2: int, sweep: bool) -> dict:
     }
 
 
-def launch_bound(descriptors: int, batch: int = 16) -> int:
-    """``stream_copy`` launches a move may make: one gather launch per
-    mover batch, and one landing launch (none for an empty move)."""
-    return -(-descriptors // batch) + 1 if descriptors else 0
+#: phase 4's static sweep of slow fractions (fig11's bounds are read
+#: against it)
+SWEEP = (0.0, 0.05, 0.10, 0.15, 0.20, 0.25)
 
 
-def sweep_fractions(it, batches, want, landed: float) -> None:
-    """Bags/s at fixed slow fractions: is the walk's landing point worth
-    its pages?  Moves without a mover (``stream_copy`` on the current
-    stream); the busy share comes from a profiled window."""
+def sweep_fractions(it, batches, want, landed: float) -> dict:
+    """Bags/s at fixed slow fractions and at the walk's landing point,
+    measured one after another; then fig11's three bounds
+    (``benchmarks/fig11_caption.py:117-119``) read against the sweep, as
+    values.  Moves without a mover (``stream_copy`` on the current
+    stream)."""
     import torch
     from repro_torch.core import h100_topology
     from repro_torch.core.telemetry import Telemetry
@@ -885,21 +900,35 @@ def sweep_fractions(it, batches, want, landed: float) -> None:
     fast, slow = topo.fast.name, topo.slow.name
     sweep = {}
     sc_ops.LAUNCHES.reset()
-    for f in (0.0, 0.05, 0.10, 0.15, 0.20, 0.30, 0.50):
+    for f in sorted(set(SWEEP) | {landed}):
         it = it.repartition_fraction(f, fast_tier=fast, slow_tier=slow,
                                      telemetry=Telemetry(), donate=True)
         sweep[f] = epoch_rate(it, batches)
-        busy = device_busy_share(lambda: [it.bag_reduce(b) for b in batches])
-        log(f"phase4/sweep/f{f:.2f},bags_per_s={sweep[f]:.0f},"
-            f"device_busy_share={busy}")
+        log(f"phase4/sweep/f{f:.6f},bags_per_s={sweep[f]:.0f}"
+            + (",walk_landing=1" if f == landed else ""))
     moves = sc_ops.LAUNCHES.reset()
     assert moves > 0, "the sweep's page moves did not launch stream_copy"
-    best = max(sweep, key=sweep.get)
-    log(f"phase4/sweep/best,f={best:.2f},bags_per_s={sweep[best]:.0f},"
-        f"landed_f={landed:.4f},membind_bags_per_s={sweep[0.0]:.0f},"
-        f"stream_copy_launches={moves}")
     for b, w in zip(batches, want):
         assert torch.equal(it.bag_reduce(b), w)
+    static = {f: r for f, r in sweep.items() if f in SWEEP}
+    best = max(static, key=static.get)
+    land, membind = sweep[landed], sweep[0.0]
+    bounds = {"landed_f": landed, "best_static_f": best,
+              "landing_gap": abs(landed - best),
+              "landing_bags_per_s": land, "membind_bags_per_s": membind,
+              "best_static_bags_per_s": static[best],
+              "landing_share_of_best": land / static[best]}
+    log(f"phase4/sweep/best,f={best:.2f},bags_per_s={static[best]:.0f},"
+        f"stream_copy_launches={moves}")
+    log(f"phase4/fig11_bounds,landed_f={landed:.4f},best_static_f={best:.2f},"
+        f"landing_gap={bounds['landing_gap']:.4f},"
+        f"gap_within_0.05={int(bounds['landing_gap'] <= 0.05)},"
+        f"landing_bags_per_s={land:.0f},membind_bags_per_s={membind:.0f},"
+        f"landing_at_least_membind={int(land >= membind)},"
+        f"best_static_bags_per_s={static[best]:.0f},"
+        f"landing_share_of_best={bounds['landing_share_of_best']:.4f},"
+        f"share_at_least_0.95={int(bounds['landing_share_of_best'] >= 0.95)}")
+    return bounds
 
 
 DA_SWEEP = ((2, 8, 2, 32, 128), (1, 4, 4, 64, 256), (3, 8, 1, 16, 64),
@@ -1217,12 +1246,7 @@ def uncounted(fn):
     """``fn()`` with every kernel's launch count put back after it: the
     launches a check makes against a plain version are not the main
     path's."""
-    from repro_torch.kernels.decode_attention import ops as da_ops
-    from repro_torch.kernels.embedding_reduce import ops as er_ops
-    from repro_torch.kernels.stream_copy import ops as sc_ops
-    from repro_torch.kernels.wkv6 import ops as wkv_ops
-    counters = (da_ops.LAUNCHES, da_ops.APPEND_LAUNCHES, er_ops.LAUNCHES,
-                sc_ops.LAUNCHES, wkv_ops.LAUNCHES)
+    counters = tuple(launch_counts().values())
     saved = [c.count for c in counters]
     try:
         return fn()
@@ -1850,13 +1874,77 @@ def phase_rwkv(stats: dict, profile: bool) -> dict:
             "decode_tokens_per_s": B * steps / (decode_ms * 1e-3)}
 
 
+def launch_counts() -> dict:
+    """Every kernel's launch count (``kv_append`` is ``decode_attention``'s
+    append kernel)."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.embedding_reduce import ops as er_ops
+    from repro_torch.kernels.stream_copy import ops as sc_ops
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    return {"embedding_reduce": er_ops.LAUNCHES, "stream_copy":
+            sc_ops.LAUNCHES, "decode_attention": da_ops.LAUNCHES,
+            "kv_append": da_ops.APPEND_LAUNCHES, "wkv6": wkv_ops.LAUNCHES}
+
+
+def phase_figures() -> dict:
+    """The port's figure scripts on the card, each raising on a failed
+    claim; returns each script's launches by kernel."""
+    import torch
+    from repro_torch.benchmarks import (bench_hotpaths, bench_serving,
+                                        fig8_dlrm, fig10_dsb, fig11_caption)
+    gc.collect()
+    torch.cuda.empty_cache()
+    payloads = {"fig8": {}, "fig10": {}, "fig11": {}}
+    figures = (
+        ("fig8", lambda: fig8_dlrm.run(payload=payloads["fig8"])),
+        ("fig10", lambda: fig10_dsb.run(payload=payloads["fig10"])),
+        ("fig11", lambda: fig11_caption.run(payload=payloads["fig11"])),
+        ("fig11_control", lambda: fig11_caption.run_control(smoke=True)[0]),
+        ("hotpaths", lambda: bench_hotpaths.run(smoke=True)[0]),
+        ("serving", lambda: bench_serving.run(smoke=True)[0]),
+    )
+    counters = launch_counts()
+    for c in counters.values():
+        c.reset()
+    per_figure = {}
+    t_phase = time.perf_counter()
+    for name, fn in figures:
+        before = {k: c.count for k, c in counters.items()}
+        t0 = time.perf_counter()
+        rows = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        for row in rows:
+            log(f"phase9/row,{row}")
+        per_figure[name] = {k: c.count - before[k]
+                            for k, c in counters.items()
+                            if c.count != before[k]}
+        log(f"phase9/{name},seconds={seconds:.2f},claims=validated,"
+            f"launches={per_figure[name]}")
+    total = {k: c.count for k, c in counters.items()}
+    log(f"phase9/launches,seconds={time.perf_counter() - t_phase:.2f},"
+        f"by_kernel={total}")
+    fig8 = payloads["fig8"]["measured"]
+    assert fig8["launches"] == 1 and fig8["backend"] == "pinned", fig8
+    act, audit = payloads["fig10"]["actuation"], payloads["fig11"]["audit"]
+    assert 0 < act["stream_copy_launches"] <= act["launch_bound"], act
+    assert all(n > 0 for n in audit["stream_copy_launches"]), audit
+    assert per_figure["serving"].get("decode_attention", 0) > 0, per_figure
+    assert per_figure["hotpaths"].get("stream_copy", 0) > 0, per_figure
+    log(f"phase9/checks,fig8_max_abs_err={fig8['max_abs_err']:.3g},"
+        f"fig8_atol={fig8['atol']},fig10_stream_copy_launches="
+        f"{act['stream_copy_launches']},fig10_launch_bound="
+        f"{act['launch_bound']},fig11_audit_stream_copy_launches="
+        f"{audit['stream_copy_launches']},fig11_audit_descriptors="
+        f"{audit['descriptors']}")
+    return {"per_figure": per_figure, "launches": total}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--rows-log2", type=int, default=25,
                     help="table rows as a power of two (default 25: 8 GiB)")
-    ap.add_argument("--sweep", action="store_true",
-                    help="after the walk, measure bags/s at fixed fractions")
     ap.add_argument("--profile", action="store_true",
                     help="after the serving walk and the rwkv run, profile "
                          "a few decode steps of each (device time by "
@@ -1875,12 +1963,13 @@ def main(argv=None) -> int:
     stats: dict = {}
     phase_embedding_reduce(stats)
     phase_stream_copy(stats)
-    res = phase_slice(stats, args.rows_log2, args.sweep)
+    res = phase_slice(stats, args.rows_log2)
     er, sc = res["er"], res["sc"]
     phase_decode_attention(stats)
     serve = phase_serving(stats, args.profile)
     phase_wkv6(stats)
     rwkv = phase_rwkv(stats, args.profile)
+    phase_figures()
     da, wkv = stats["da"], stats["wkv"]
     kernels = [
         {"name": "embedding_reduce", "route": "cuda",

@@ -76,9 +76,8 @@ from repro_torch.kernels.stream_copy import ops as sc_ops
 #: lower toward 1 for finer spreading (1 = legacy page-at-a-time).
 DEFAULT_RUN_PAGES = 16
 
-#: gather-crossover cost model of the ``modeled`` backend, the reference's
-#: CPU calibration kept so both packages take the same path for the same
-#: call:
+#: gather-crossover cost model, the reference's CPU calibration kept so
+#: both packages take the same path for the same call:
 #: the masked gather pays one pass per non-empty shard (fixed dispatch +
 #: per-byte work over the WHOLE batch each pass); the bucketed gather pays
 #: one host base (route + hand-back) plus per-row indexing overhead.
@@ -212,11 +211,18 @@ def move_plan(runs, new_dev: Optional[np.ndarray] = None,
                        np.cumsum(n) - n, n], axis=1)
     if new_dev is None:
         return gather, np.zeros((0, 5), np.int64)
+    return gather, landing_plan(runs, new_dev, new_local)
+
+
+def landing_plan(runs, new_dev: np.ndarray, new_local: np.ndarray
+                 ) -> np.ndarray:
+    """:func:`move_plan`'s landing alone."""
+    if not runs:
+        return np.zeros((0, 5), np.int64)
     pages = np.concatenate([p for _, _, p, _ in runs])
-    landing = page_segments(np.zeros(pages.size), np.arange(pages.size),
-                            np.asarray(new_dev)[pages],
-                            np.asarray(new_local)[pages])
-    return gather, landing
+    return page_segments(np.zeros(pages.size), np.arange(pages.size),
+                         np.asarray(new_dev)[pages],
+                         np.asarray(new_local)[pages])
 
 
 def element_segments(page_segs: np.ndarray, page_elems: int) -> np.ndarray:
@@ -496,14 +502,12 @@ class InterleavedTensor:
         The masked path pays one full pass PER NON-EMPTY SHARD, so its
         cost scales with shard count and bytes; the bucketed path pays a
         fixed host base plus per-row indexing overhead, independent of
-        shard count.  Both give the same values.  The crossover applies on
-        the ``modeled`` backend only, with the reference package's CPU
-        constants, so both packages pick the same path there.  On
-        ``pinned`` the bucketed gather is the one path: it reads a slow
-        shard over PCIe only for the rows that shard owns (no card
-        measurement yet places a crossover)."""
-        if self.backend == "pinned":
-            return "bucketed"
+        shard count.  Both give the same values.  The constants are the
+        reference package's CPU calibration, so both packages pick the same
+        path, on either backend: on the card ``bench_hotpaths`` (run by
+        ``chip_smoke.py``) holds the chosen path to be no slower than
+        masked, at 4096 rows over two shards (masked chosen) and at 512
+        rows over four (bucketed chosen)."""
         shards = sum(1 for p in self.parts if p.shape[0] > 0) or 1
         row_bytes = (int(np.prod(self.parts[0].shape[1:]))
                      * self.parts[0].element_size())
@@ -557,6 +561,8 @@ class InterleavedTensor:
                                device=self.device)
         dev, local = self._route_host(flat)
         self._host_access()
+        if self.backend == "pinned":
+            return self._gather_card(dev, local).reshape(idx.shape + feat)
         out = torch.empty((flat.size,) + feat, dtype=dtype, device=self.device)
         for i, part in enumerate(self.parts):
             mask = dev == i
@@ -568,6 +574,39 @@ class InterleavedTensor:
             pos = torch.as_tensor(np.nonzero(mask)[0], device=self.device)
             out[pos] = got.to(self.device)
         return out.reshape(idx.shape + feat)
+
+    def _gather_card(self, dev: np.ndarray, local: np.ndarray
+                     ) -> torch.Tensor:
+        """The bucketed gather on the card, for routed rows (``dev``,
+        ``local``): the HBM shard's rows are gathered on the card, the
+        rows every pinned shard owns on the host into one page-locked
+        buffer, and one permutation on the card puts them back in request
+        order.  Three non-blocking copies from page-locked memory (the HBM
+        shard's rows, the host-gathered rows, the permutation) and no
+        host wait, where a copy a shard and side would each wait."""
+        feat = tuple(self.parts[0].shape[1:])
+        order = np.argsort(dev, kind="stable")
+        counts = np.bincount(dev, minlength=len(self.parts))
+        last = np.array([max(p.shape[0] - 1, 0) for p in self.parts])
+        rows = np.minimum(local, last[dev])[order]
+        on_card = int(counts[0])
+        got = [self.parts[0].index_select(
+            0, host_to_device(rows[:on_card], torch.int64, self.device))]
+        if on_card < rows.size:
+            host = torch.empty((rows.size - on_card,) + feat,
+                               dtype=self.parts[0].dtype, pin_memory=True)
+            start = on_card
+            for part, n in zip(self.parts[1:], counts[1:].tolist()):
+                if n:
+                    torch.index_select(
+                        part, 0, torch.from_numpy(rows[start:start + n]),
+                        out=host[start - on_card:start - on_card + n])
+                    start += n
+            got.append(host.to(self.device, non_blocking=True))
+        back = np.empty(rows.size, np.int64)
+        back[order] = np.arange(rows.size)
+        return torch.cat(got).index_select(
+            0, host_to_device(back, torch.int64, self.device))
 
     def _copy_shard(self, i: int) -> torch.Tensor:
         """A full copy of shard ``i`` in the same memory (copy-on-write):
@@ -844,8 +883,9 @@ class InterleavedTensor:
     def _issue_runs(self, runs, names, stage, offsets, *, mover, source,
                     lane) -> None:
         """One descriptor per run through ``mover``, each written into its
-        view of ``stage`` (``offsets``: the run's first staged page);
-        returns once this stream waits on every copy's ``done``."""
+        view of ``stage`` (``offsets``: the run's first staged page), run
+        in this thread (the landing needs them at once); returns once this
+        stream waits on every copy's ``done``."""
         ready = None
         if self.device.type == "cuda":
             ready = torch.cuda.Event()
@@ -863,11 +903,7 @@ class InterleavedTensor:
             )
             for (s, d, pages, l0), o in zip(runs, offsets.tolist())
         ]
-        futures = mover.issue(descs)
-        if mover.asynchronous:
-            mover.wait_all()
-        for f in futures:
-            f.result()
+        mover.run(descs)
         if self.device.type == "cuda":
             stream = torch.cuda.current_stream(self.device)
             for done in {id(d.done): d.done for d in descs
@@ -882,7 +918,7 @@ class InterleavedTensor:
         ordinal; consecutive slots coalesced).  The rebuild path adds
         ``keep`` (page segments from old shard ``d`` into ``targets[d]``)
         and ``zero_fill`` ((ordinal, first page, pages) spans of zeros)."""
-        _, landing = move_plan(runs, new_dev, new_local)
+        landing = landing_plan(runs, new_dev, new_local)
         if keep is not None and len(keep):
             keep = keep.copy()
             keep[:, 0] += 2  # old shard d is source base 2 + d

@@ -385,6 +385,9 @@ class BulkMover:
         self._completions: "queue.Queue[Completion]" = queue.Queue()
         self._pending = 0
         self._pending_lock = threading.Lock()
+        #: notified by a drain worker when the backlog empties (the fence
+        #: of ``wait_all`` sleeps on it instead of polling)
+        self._idle = threading.Condition(self._pending_lock)
         # Guards the closed flag vs queue puts: without it a submit racing
         # close() could enqueue batches after the workers consumed their
         # shutdown sentinels — work nobody drains, a silent wait_all hang.
@@ -518,8 +521,14 @@ class BulkMover:
             comp = Completion(d, result, dt, modeled / len(batch))
             if d.on_done is not None:
                 d.on_done(result)
-            if d.future is not None:
-                d.future._fulfil(comp)
+            # the descriptor lets go of its future: the completion refers
+            # back to the descriptor, and that cycle would keep the payload
+            # (often a view of a shard its owner is dropping) alive until
+            # a garbage collection; on the card that pins a freed shard's
+            # page-locked block and the next shard allocates anew
+            future, d.future = d.future, None
+            if future is not None:
+                future._fulfil(comp)
             out.append(comp)
         # One batch record per route present (submission batches are
         # route-pure, but sync callers may hand-build mixed batches; each
@@ -534,10 +543,16 @@ class BulkMover:
             _, _, batch = self._queue.get()
             if batch is None:
                 return
+            n = len(batch)
             for comp in self._run_batch(batch):
                 self._completions.put(comp)
+            # let go of the batch before sleeping on the queue: a payload
+            # is often a view of a shard its owner is dropping
+            batch = comp = None
             with self._pending_lock:
-                self._pending -= len(batch)
+                self._pending -= n
+                if self._pending == 0:
+                    self._idle.notify_all()
 
     def submit(self, descs: Sequence[Descriptor]) -> list[Completion]:
         """Submit descriptors; sync mode returns completions immediately."""
@@ -551,17 +566,7 @@ class BulkMover:
             self.bytes_submitted += sum(d.nbytes for d in descs)
 
         if not self.asynchronous:
-            if self._closed:
-                raise RuntimeError("BulkMover.submit() after close()")
-            if not descs:
-                return []
-            count_accepted()
-            order = {id(d): i for i, d in enumerate(descs)}
-            out = []
-            for b in self._schedule(descs):
-                out.extend(self._run_batch(b))
-            out.sort(key=lambda c: order[id(c.descriptor)])
-            return out
+            return self.run(descs)
         with self._lifecycle:
             if self._closed:
                 raise RuntimeError("BulkMover.submit() after close()")
@@ -573,6 +578,29 @@ class BulkMover:
             for b in self._schedule(descs):
                 self._queue.put((b[0].lane, next(self._seq), b))
         return []
+
+    def run(self, descs: Sequence[Descriptor]) -> list[Completion]:
+        """Execute ``descs`` in the calling thread and return their
+        completions in order: a synchronous mover's ``submit``, and on an
+        asynchronous one what a caller that fences at once would get
+        from ``issue`` and its futures, without the hand-off to a drain
+        worker and back.  Batching, billing, telemetry, writer limits,
+        futures and the counters are ``submit``'s."""
+        descs = list(descs)
+        with self._lifecycle:
+            if self._closed:
+                raise RuntimeError("BulkMover.submit() after close()")
+            if not descs:
+                return []
+            # only ACCEPTED work bumps the observability counters
+            self.descriptors_submitted += len(descs)
+            self.bytes_submitted += sum(d.nbytes for d in descs)
+        order = {id(d): i for i, d in enumerate(descs)}
+        out = []
+        for b in self._schedule(descs):
+            out.extend(self._run_batch(b))
+        out.sort(key=lambda c: order[id(c.descriptor)])
+        return out
 
     def issue(self, descs: Sequence[Descriptor]) -> list["MoveFuture"]:
         """Non-blocking submit: returns one :class:`MoveFuture` per
@@ -621,18 +649,19 @@ class BulkMover:
                 return out
 
     def wait_all(self, timeout: float = 60.0) -> list[Completion]:
-        """Fence: block until every submitted descriptor completed."""
+        """Fence: block until every submitted descriptor completed.
+
+        Submissions count as pending before their batches are queued, and
+        a drain worker posts a batch's completions before it uncounts
+        them, so an empty backlog means every completion can be polled."""
         deadline = time.monotonic() + timeout
-        out = []
-        while True:
-            out.extend(self.poll())
-            with self._pending_lock:
-                if self._pending == 0 and self._queue.empty():
-                    out.extend(self.poll())
-                    return out
-            if time.monotonic() > deadline:
-                raise TimeoutError("BulkMover.wait_all timed out")
-            time.sleep(0.0005)
+        with self._idle:
+            while self._pending:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise TimeoutError("BulkMover.wait_all timed out")
+                self._idle.wait(left)
+        return self.poll()
 
     def close(self):
         with self._lifecycle:

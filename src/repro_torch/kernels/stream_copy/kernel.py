@@ -99,6 +99,13 @@ def _bases(tensors, what: str) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
             np.fromiter((not t.is_cuda for t in tensors), bool, len(tensors)))
 
 
+#: lists of at most this many segments take the per-row table path: a
+#: mover batch (16 runs) or a small move's landing, where a loop over
+#: Python integers costs less than the vectorised path's fixed numpy
+#: calls (about even at 50 segments)
+SMALL_TABLE = 48
+
+
 def launch_table(srcs, dsts, segs: np.ndarray
                  ) -> tuple[np.ndarray, np.ndarray, int, int]:
     """The kernel's view of a segment list: its table (one row of 8 int64
@@ -107,6 +114,8 @@ def launch_table(srcs, dsts, segs: np.ndarray
     16-byte source units, and the launch's dtype codes.  Raises on a
     segment that reaches outside its bases."""
     segs = np.asarray(segs, np.int64).reshape(-1, 8)
+    if len(segs) <= SMALL_TABLE:
+        return _small_table(srcs, dsts, segs)
     s_item, d_item = srcs[0].element_size(), dsts[0].element_size()
     s_ptr, s_numel, s_host = _bases(srcs, "source")
     d_ptr, d_numel, d_host = _bases(dsts, "destination")
@@ -151,6 +160,58 @@ def launch_table(srcs, dsts, segs: np.ndarray
     prefix = np.zeros(len(segs) + 1, np.int64)
     np.cumsum(units, out=prefix[1:])
     return table, prefix, s_code, d_code
+
+
+def _dtype_codes(srcs, dsts) -> tuple[int, int, int, int]:
+    """(source code, destination code, table scale, units' elements): for
+    equal dtypes the table counts bytes."""
+    s_item = srcs[0].element_size()
+    if srcs[0].dtype == dsts[0].dtype:
+        return 0, 0, s_item, 16
+    return (common.dtype_code(srcs[0].dtype),
+            common.dtype_code(dsts[0].dtype), 1, 16 // s_item)
+
+
+def _small_table(srcs, dsts, segs: np.ndarray
+                 ) -> tuple[np.ndarray, np.ndarray, int, int]:
+    """:func:`launch_table` row by row, on Python integers (the same table
+    and the same refusals: a base out of range before a segment past its
+    bases)."""
+    s_item, d_item = srcs[0].element_size(), dsts[0].element_size()
+    s_ptr, s_numel, s_host = (x.tolist() for x in _bases(srcs, "source"))
+    d_ptr, d_numel, d_host = (x.tolist() for x in _bases(dsts, "destination"))
+    n_src, n_dst = len(srcs), len(dsts)
+    s_code, d_code, scale, vec_elems = _dtype_codes(srcs, dsts)
+    table, prefix = [], [0]
+    bad_base = outside = False
+    units = 0
+    for si, so, ss, di, do, ds, rows, cols in segs.tolist():
+        if rows > 0 and cols > 0:
+            if not (0 <= si < n_src and 0 <= di < n_dst):
+                bad_base = True
+                continue
+            if (so < 0 or do < 0 or ss < 0 or (rows > 1 and ds < cols)
+                    or so + (rows - 1) * ss + cols > s_numel[si]
+                    or do + (rows - 1) * ds + cols > d_numel[di]):
+                outside = True
+            n_rows, n_cols = rows, cols * scale
+            units += n_rows * (-(-n_cols // vec_elems))
+        else:
+            si = di = n_rows = n_cols = 0
+        a_src, a_dst = s_ptr[si] + so * s_item, d_ptr[di] + do * d_item
+        # every row starts on a 16-byte boundary on both sides
+        tail = (ss * s_item | ds * d_item) if rows > 1 else 0
+        table += (a_src, a_dst, n_rows, n_cols, ss * scale, ds * scale,
+                  ((a_src | a_dst | tail) % 16 == 0) * VEC
+                  + s_host[si] * SRC_HOST + d_host[di] * DST_HOST, 0)
+        prefix.append(units)
+    if bad_base:
+        raise ValueError("stream_copy_segments: base index out of range")
+    if outside:
+        raise ValueError("stream_copy_segments: a segment reaches outside "
+                         "its bases")
+    return (np.array(table, np.int64).reshape(-1, 8),
+            np.array(prefix, np.int64), s_code, d_code)
 
 
 def stream_copy_segments(srcs, dsts, segs: np.ndarray,

@@ -477,7 +477,9 @@ def test_card_moves_launch_stream_copy_with_or_without_mover():
     r, _ = _build(x, (names, (4, 2, 2)), 8, headroom=20)
     t = TIT.from_array(torch.from_numpy(x), TPolicy.weighted(names, (4, 2, 2)),
                        8, headroom=20, device="cuda")
-    assert t.backend == "pinned" and t.choose_gather_path(1 << 20) == "bucketed"
+    assert t.backend == "pinned"
+    for n in (64, 512, 4096, 1 << 20):  # the reference's crossover, on the card too
+        assert t.choose_gather_path(n) == r.choose_gather_path(n)
     ptrs = [p.data_ptr() for p in t.parts]
     steps = [lambda it, **kw: it.repartition_weights((0.3125, 0.25), **kw),
              lambda it, **kw: it.drain_device("cxl-b", **kw)]
@@ -521,3 +523,29 @@ def test_bf16_scatter_add_takes_the_bucketed_path():
     assert t_donation.FULL_SHARD_COPIES.reset() == 2
     assert np.array_equal(t2.to_array().float().numpy(),
                           np.asarray(r2.to_array().astype(jnp.float32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", [(3, 1), (4, 2, 2, 1)])
+def test_card_bucketed_gather_equals_masked(weights):
+    """On the card the bucketed gather (HBM rows gathered on the card,
+    pinned rows on the host into one page-locked buffer, one permutation
+    back) gives the masked gather's rows and the reference's, with
+    duplicate, negative and out-of-range rows, after a move into free
+    slots."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (pinned backend)")
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(64 * 8, 4)).astype(np.float32)
+    names = ("ddr5-l8", "cxl-a", "cxl-b", "cxl-c")[:len(weights)]
+    r, _ = _build(x, (names, weights), 8, headroom=8)
+    t = TIT.from_array(torch.from_numpy(x), TPolicy.weighted(names, weights),
+                       8, headroom=8, device="cuda")
+    r = r.repartition_fraction(0.4, telemetry=RTel())
+    t = t.repartition_fraction(0.4, telemetry=TTel(), donate=True)
+    idx = rng.integers(-20, x.shape[0] + 20, size=(3, 300))
+    idx[0, :50] = idx[0, 50]  # duplicates
+    got = t._gather_rows_bucketed(idx)
+    assert got.is_cuda and got.shape == (3, 300, 4)
+    assert torch.equal(got, t._gather_rows_masked(torch.from_numpy(idx)))
+    assert np.array_equal(_np(got), _np(r._gather_rows_bucketed(idx)))

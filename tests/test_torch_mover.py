@@ -194,3 +194,57 @@ def test_sync_async_equivalence_and_double_buffer():
         assert torch.equal(p, r)
     assert (list(t_mv.double_buffer(range(7), lambda i: i * i))
             == list(r_mv.double_buffer(range(7), lambda i: i * i)))
+
+
+def test_run_executes_in_the_calling_thread():
+    """``BulkMover.run`` (the page moves' fence) executes in the caller's
+    thread on an asynchronous mover too, and bills, batches and counts as
+    the reference's submit-and-fence does on the same descriptors."""
+    topo = t_paper3()
+    fast, (a, b) = topo.fast.name, topo.slow_names[:2]
+    routes = [(fast, a)] * 5 + [(fast, b)] * 3 + [(a, fast)] * 2
+    pay = [np.full((4, 8), i, np.float32) for i in range(len(routes))]
+    r_tel, t_tel = RTel(), TTel()
+    with r_mv.BulkMover(r_paper3(), asynchronous=True, batch_size=4,
+                        telemetry=r_tel) as rm:
+        rm.submit([r_mv.Descriptor(s, d, jnp.asarray(p))
+                   for (s, d), p in zip(routes, pay)])
+        rm.wait_all()
+        r_counts = (rm.descriptors_submitted, rm.bytes_submitted)
+    threads = []
+    with t_mv.BulkMover(topo, asynchronous=True, batch_size=4,
+                        telemetry=t_tel, device="cpu") as tm:
+        descs = [t_mv.Descriptor(s, d, torch.from_numpy(p),
+                                 on_done=lambda _: threads.append(
+                                     threading.current_thread()))
+                 for (s, d), p in zip(routes, pay)]
+        comps = tm.run(descs)
+        assert tm.pending == 0
+        t_counts = (tm.descriptors_submitted, tm.bytes_submitted)
+    assert threads == [threading.main_thread()] * len(routes)
+    assert [c.descriptor for c in comps] == descs
+    assert all(torch.equal(c.result, torch.from_numpy(p))
+               for c, p in zip(comps, pay))
+    assert t_counts == r_counts and _routes(t_tel) == _routes(r_tel)
+
+
+def test_fulfilled_descriptor_lets_go_of_its_future():
+    """A descriptor drops its future once fulfilled (the future keeps the
+    completion): nothing cycles back to the payload, which is freed as
+    soon as its last owner lets go, without a garbage collection."""
+    import gc
+    import weakref
+    gc.disable()
+    try:
+        with t_mv.BulkMover(t_paper(), asynchronous=True,
+                            device="cpu") as m:
+            payload = torch.zeros(64)
+            alive = weakref.ref(payload)
+            d = t_mv.Descriptor("ddr5-l8", m.topology.slow.name, payload)
+            (future,) = m.issue([d])
+            m.wait_all()
+            assert future.result().descriptor is d and d.future is None
+            del payload, d, future
+            assert alive() is None
+    finally:
+        gc.enable()

@@ -234,6 +234,44 @@ def test_plain_segments_refuse_segments_outside_their_bases():
                                np.zeros((0, 8), np.int64))
 
 
+@pytest.mark.parametrize("cast", [False, True])
+def test_short_and_long_launch_tables_agree(monkeypatch, cast):
+    """Short lists take the per-row table path: on random lists (empty
+    segments, negative offsets and strides, bases out of range, segments
+    past their bases) it gives the vectorised path's table, prefix and
+    dtype codes, or the same refusal."""
+    rng = np.random.default_rng(11)
+    srcs = [torch.zeros(1000, dtype=torch.bfloat16 if cast else torch.float32),
+            torch.zeros(500, dtype=torch.bfloat16 if cast else torch.float32)]
+    dsts = [torch.zeros(800), torch.zeros(900)]
+    outcomes = set()
+    for _ in range(600):
+        segs = []
+        for _ in range(int(rng.integers(1, 10))):
+            rows, cols = int(rng.integers(0, 4)), int(rng.integers(0, 50))
+            segs.append((int(rng.choice([0, 1, 1, 2])), int(rng.integers(-2, 300)),
+                         int(rng.integers(-3, 80)), int(rng.choice([0, 1, -1])),
+                         int(rng.integers(-2, 300)),
+                         int(rng.integers(cols - 3, cols + 80)), rows, cols))
+        segs = np.array(segs, np.int64)
+        got = []
+        for small in (sc_kernel.SMALL_TABLE, 0):
+            monkeypatch.setattr(sc_kernel, "SMALL_TABLE", small)
+            try:
+                got.append(sc_kernel.launch_table(srcs, dsts, segs))
+            except ValueError as e:
+                got.append(str(e))
+        short, long = got
+        if isinstance(short, str):
+            assert short == long
+            outcomes.add(short)
+        else:
+            assert np.array_equal(short[0], long[0])
+            assert np.array_equal(short[1], long[1]) and short[2:] == long[2:]
+            outcomes.add("table")
+    assert len(outcomes) == 3  # tables and both refusals were drawn
+
+
 # -- the launch the wrapper makes -------------------------------------------------
 def _seg_launches(monkeypatch, srcs, dsts, segs):
     """The kernel launches (table, prefix, n_seg, total, dtype codes) that
