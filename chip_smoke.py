@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one H100.
 
-    python3 chip_smoke.py            # the three slices and the figures
+    python3 chip_smoke.py            # the three slices, the figures, MEMO
+    python3 chip_smoke.py --full-gates   # and the full-size hot-path and
+                                         # serving gates
 
 It needs a CUDA card and the checkout's ``src/`` beside it, and fails
 (non-zero exit, no result line) otherwise.  Phases, each raising on a
 wrong result or a missing kernel launch:
 
-1. device: card name and power limit; build the four CUDA kernels from
+1. device: card name and power limit; build the five CUDA kernels from
    ``src/repro_torch/csrc`` (one ``nvcc`` each, in parallel); fail if
    ``-Xptxas -v`` reports a spill in any of them.
 2. ``embedding_reduce`` against its plain version: fp32 and bf16 tables in
@@ -36,7 +38,8 @@ wrong result or a missing kernel launch:
    the routed form timed against the per-shard path at each step;
    membind-fast bags/s, device
    busy share and host time per ``bag_reduce`` call; then a Caption walk
-   from 0% slow on measured bag throughput.  Kernel launch counts are
+   from 0% slow on measured bag throughput (an epoch's signal: the median
+   of five windows, the collector paused).  Kernel launch counts are
    reset right before the walk and read right after it;
    ``embedding_reduce``'s must equal the walk's ``bag_reduce`` calls and
    ``stream_copy``'s stay within the same bound summed over its moves.
@@ -87,7 +90,12 @@ wrong result or a missing kernel launch:
 
 9. the figures: the port's figure scripts (``repro_torch.benchmarks``) on
    the card at the reference's sizes, each asserting the reference's
-   claims: fig8 (its measured row one routed ``embedding_reduce`` launch
+   claims: fig2-fig5 (their measured rows through ``memo_probe`` and
+   ``stream_copy`` on HBM; fig2's chase over a 256 MiB single cycle),
+   fig6 (its engine rows decoding through ``decode_attention``), the
+   examples ``quickstart`` (a chase, the planner, one routed
+   ``embedding_reduce`` launch held to the dense sum) and
+   ``serve_tiered_kv`` (four serving runs), fig8 (its measured row one routed ``embedding_reduce`` launch
    over an HBM and a pinned shard, held to the dense sum), fig10 (its
    actuation through ``stream_copy`` over an HBM and two pinned shards),
    fig11 (its audit through the default mover's ``stream_copy``, within
@@ -97,6 +105,19 @@ wrong result or a missing kernel launch:
    modes, ``decode_attention`` every decode step).  Prints every row,
    each script's seconds and launches, and the phase's launches by
    kernel.
+10. MEMO: each ``memo_probe`` entry point against its plain version on
+   HBM and on pinned host memory, bit-equal; then, counts reset just
+   before and read just after, ``memo.calibrate`` of both tiers: load and
+   store over 1-528 lanes and a ``stream_copy`` into the tier on a 1 GiB
+   buffer, random 1-64 KiB blocks and a single-cycle chase over 256 MiB
+   tables, every record and the fitted ``TierSpec`` fields printed; then
+   each entry point against its plain version again, bit-equal, at the
+   shapes the calibration and fig2 gave it, on both memories; then
+   ``seq_load``'s time at 528 lanes over 1 GiB beside its plain version
+   and byte bound, its outputs compared too.
+``--full-gates`` then runs ``bench_hotpaths`` (4096 pages, the
+repartition timed the reference's one-pass way) and ``bench_serving``
+at full size, with their gates.
 
 Prints the card line, per-phase lines, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.
@@ -175,6 +196,10 @@ def phase_device() -> dict:
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     log(card)
+    uuid = subprocess.run(
+        ["nvidia-smi", "--query-gpu=uuid", "--format=csv,noheader"],
+        capture_output=True, text=True)
+    log(f"gpu_uuid={uuid.stdout.strip() or 'not read'}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"devices={torch.cuda.device_count()}")
     t0 = time.perf_counter()
@@ -591,15 +616,22 @@ def bags(it, batches) -> list:
     return [it.bag_reduce(b) for b in batches]
 
 
+#: windows of an epoch's signal (their median counts)
+EPOCH_WINDOWS = 5
+
+
 def epoch_rate(it, batches) -> float:
-    """Bags/s of one epoch of ``it.bag_reduce``: three windows of 32
-    batches, and their median, so one window stalled by the shared host
-    does not steer the walk."""
+    """Bags/s of one epoch of ``it.bag_reduce``: ``EPOCH_WINDOWS`` windows
+    of 8 x ``len(batches)`` calls with the garbage collector paused, as
+    ``bench_hotpaths`` times its passes, and their median, so a window
+    stalled by the shared host does not steer the walk."""
+    from repro_torch.benchmarks.common import gc_paused
     rates = []
-    for _ in range(3):
-        ms = time_ms(lambda: bags(it, batches), iters=8, warmup=1)
-        rates.append(BAG * len(batches) / (ms * 1e-3))
-    return sorted(rates)[1]
+    with gc_paused():
+        for _ in range(EPOCH_WINDOWS):
+            ms = time_ms(lambda: bags(it, batches), iters=8, warmup=1)
+            rates.append(BAG * len(batches) / (ms * 1e-3))
+    return sorted(rates)[EPOCH_WINDOWS // 2]
 
 
 def host_cost(it, batches, reps: int = 8) -> dict:
@@ -1452,6 +1484,7 @@ def phase_serving(stats: dict, profile: bool) -> dict:
         assert int(lengths.min()) == SERVE_VALID + steps, lengths
         log(f"phase6/walk/final,epochs={WALK_EPOCHS},"
             f"slow_fraction={cache.slow_fraction():.4f},"
+            f"arbiter_budget_Bps={arbiter.cfg.slow_bw_budget:.6g},"
             f"data_ptr_same=1,full_shard_copies=0,decode_traces=1,"
             f"launches={launches}")
         if slow_check is None:
@@ -1874,16 +1907,218 @@ def phase_rwkv(stats: dict, profile: bool) -> dict:
             "decode_tokens_per_s": B * steps / (decode_ms * 1e-3)}
 
 
+#: tier fields phase 10 fits (``memo.fit_tier``), in the order printed
+TIER_FIELDS = ("load_bw", "store_bw", "nt_store_bw", "load_latency_ns",
+               "chase_latency_ns", "load_peak_streams", "store_peak_streams",
+               "load_collapse_streams", "store_collapse_streams",
+               "collapse_factor", "capacity_bytes")
+
+
+def memo_checks(g) -> int:
+    """Each probe entry point against its plain version on HBM and on
+    pinned memory, bit-equal: integer-valued tables whose sums stay below
+    2^24 are exact in any order.  Ragged lane slices, views off a 16-byte
+    boundary, starts outside the table (clamped), odd block lengths, two
+    lanes of starts, and a single-cycle chase.  Returns the cases run."""
+    import torch
+    from repro_torch.core import memo
+    from repro_torch.kernels.memo_probe import ops, ref
+    cases = 0
+    for mem in ("hbm", "pinned"):
+        for n, lanes, off in ((1024, 1, 0), (4096, 4, 0), (1 << 20, 528, 0),
+                              (1 << 20, 132, 1), (100_003, 7, 3),
+                              (6, 3, 1)):
+            nn = n - n % lanes
+            host = torch.randint(-8, 9, (nn + off,), generator=g,
+                                 dtype=torch.float32)
+            x = _place(host, mem)[off:]
+            assert torch.equal(ops.seq_load(x, lanes).cpu(),
+                               ref.seq_load(host[off:], lanes)), (mem, n,
+                                                                  lanes, off)
+            v = torch.randint(-8, 9, (lanes,), generator=g).float()
+            ops.seq_store(x, lanes, v)
+            torch.cuda.synchronize()
+            assert torch.equal(x.cpu(), ref.seq_store(host[off:].clone(),
+                                                      lanes, v)), (mem, n)
+            cases += 2
+        n = 1 << 18
+        host = torch.randint(-8, 9, (n,), generator=g, dtype=torch.float32)
+        x = _place(host, mem)
+        for be, shape in ((256, (512,)), (37, (4, 300)), (1, (64,)),
+                          (16384, (2, 16))):
+            starts = torch.randint(-64, n + 64, shape, generator=g,
+                                   dtype=torch.int32)
+            got = ops.random_block_load(x, starts.cuda(), be)
+            assert torch.equal(got.cpu(), ref.random_block_load(
+                host, starts, be)), (mem, be, shape)
+            cases += 1
+        perm = torch.from_numpy(memo.single_cycle(1 << 16, 1))
+        for steps, start in ((0, 0), (1, 5), (10_000, 0), (10_000, 4321)):
+            got = ops.pointer_chase(_place(perm, mem), steps, start)
+            assert int(got) == int(ref.pointer_chase(perm, steps, start)), (
+                steps, start)
+            cases += 1
+    torch.cuda.synchronize()
+    return cases
+
+
+def card_generator():
+    import torch
+    return torch.Generator(device="cuda").manual_seed(10)
+
+
+def memo_full_checks(g, records: dict) -> float:
+    """Each probe entry point against its plain version at the shapes
+    the calibration (``records``, by memory) and fig2 gave it, on HBM and
+    on pinned memory: ``seq_load`` and ``seq_store`` on each sweep
+    point's window of a 1 GiB buffer, ``random_block_load`` at each block
+    size and count over a 256 MiB table, ``pointer_chase`` at the
+    calibration's and fig2's steps through the 2^26-entry single cycle.
+    The tables hold integers in [-8, 8] drawn on the card: a lane's
+    partial sums, walks of such steps (about 2^16 in standard deviation
+    at 2^28 elements), stay far below 2^24, where fp32 adds integers
+    exactly in any order, so the sums compare bit for bit.  Returns the
+    largest difference (asserted 0)."""
+    import torch
+    from repro_torch.benchmarks import fig2_latency
+    from repro_torch.core import memo
+    from repro_torch.kernels.memo_probe import ops, ref
+    err = 0.0
+
+    def same(got, want, what) -> None:
+        nonlocal err
+        d = (got.cpu().double() - want.cpu().double()).abs().max().item()
+        err = max(err, d)
+        assert d == 0, (what, d)
+
+    n = (1 << 30) // 4
+    host = torch.randint(-8, 9, (n,), generator=card_generator(),
+                         dtype=torch.float32, device="cuda").cpu()
+    table = host[:(1 << 28) // 4]
+    perm = torch.from_numpy(memo.single_cycle(1 << 26, 0))
+    for mem in ("hbm", "pinned"):
+        sweep = [r for r in records[mem] if r.name == "seq"]
+        x = _place(host, mem)
+        want = x.clone()  # ``seq_store``'s plain version writes here
+        for r in sweep:
+            if r.op != "load":
+                continue
+            count = r.bytes_moved // 4
+            off = (n - count) // 8 * 4  # a 16-byte aligned window's start
+            win = x[off:off + count]
+            same(ops.seq_load(win, r.lanes), ref.seq_load(win, r.lanes),
+                 (mem, "seq_load", r.lanes, count))
+        for r in sweep:
+            if r.op != "store":
+                continue
+            count = r.bytes_moved // 4
+            off = (n - count) // 8 * 4
+            v = torch.randint(-8, 9, (r.lanes,), generator=g).float()
+            ops.seq_store(x[off:off + count], r.lanes, v)
+            ref.seq_store(want[off:off + count], r.lanes,
+                          v.to(want.device))
+            torch.cuda.synchronize()
+            assert torch.equal(x, want), (mem, "seq_store", r.lanes, count)
+        del x, want
+        t = _place(table, mem)
+        for r in records[mem]:
+            if r.name != "rand":
+                continue
+            be, k = r.block_bytes // 4, r.bytes_moved // r.block_bytes
+            starts = torch.randint(0, t.numel() - be, (k,), generator=g,
+                                   dtype=torch.int32)
+            same(ops.random_block_load(t, starts.cuda(), be),
+                 ref.random_block_load(t, starts.to(t.device), be),
+                 (mem, "random_block_load", be, k))
+        del t
+        p = _place(perm, mem)
+        chase = [r.bytes_moved // 4 for r in records[mem]
+                 if r.name == "ptr-chase"]
+        for steps in chase + [fig2_latency.CHASE_STEPS]:
+            for start in torch.randint(0, 1 << 26, (2,), generator=g):
+                same(ops.pointer_chase(p, steps, int(start)),
+                     ref.pointer_chase(perm, steps, int(start)),
+                     (mem, "pointer_chase", steps, int(start)))
+        del p
+    torch.cuda.synchronize()
+    return err
+
+
+def phase_memo(stats: dict) -> dict:
+    """Phase 10: MEMO's measure mode on the card.  The probes against
+    their plain versions at small, ragged shapes; then, counts reset just
+    before and read just after, the calibration of both tiers
+    (``memo.calibrate``: the load and store lane sweep and the copy on
+    1 GiB, random blocks and a single-cycle chase over 256 MiB tables),
+    every record and the fitted fields printed; then the probes against
+    their plain versions at the calibration's shapes
+    (:func:`memo_full_checks`), and ``seq_load``'s time at its widest
+    sweep point beside its plain version and byte bound, its outputs
+    compared too."""
+    import torch
+    from repro_torch.core import memo
+    from repro_torch.kernels.memo_probe import ops, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    g = torch.Generator(device="cpu").manual_seed(10)
+    cases = memo_checks(g)
+    log(f"phase10/checks,cases={cases},bit_equal=1,max_abs_err=0")
+    ops.LAUNCHES.reset()
+    fitted, records = {}, {}
+    for mem in ("hbm", "pinned"):
+        t0 = time.perf_counter()
+        records[mem], spec = memo.calibrate(mem)
+        for r in records[mem]:
+            log(f"phase10/{mem}/record,{r.name},{r.op},lanes={r.lanes},"
+                f"block_bytes={r.block_bytes},bytes={r.bytes_moved},"
+                f"seconds={r.seconds:.6g},GBps={r.gbps:.3f}")
+        fitted[mem] = {k: getattr(spec, k) for k in TIER_FIELDS}
+        log(f"phase10/{mem}/fitted,tier={spec.name},seconds="
+            f"{time.perf_counter() - t0:.2f}," + ",".join(
+                f"{k}={v if isinstance(v, int) else format(v, '.6g')}"
+                for k, v in fitted[mem].items()))
+    launches = ops.LAUNCHES.count
+    assert launches > 0, "the calibration did not launch memo_probe"
+    t0 = time.perf_counter()
+    err = memo_full_checks(g, records)
+    log(f"phase10/full_checks,bit_equal=1,max_abs_err={err},"
+        f"seconds={time.perf_counter() - t0:.2f}")
+    # the widest sweep point: 528 lanes over 1 GiB of HBM
+    lanes, n = memo.CALIBRATION_LANES[-1], (1 << 30) // 4
+    n -= n % lanes
+    x = torch.randint(-8, 9, (n,), generator=card_generator(),
+                      dtype=torch.float32, device="cuda")
+    got, want = ops.seq_load(x, lanes), ref.seq_load(x, lanes)
+    err = max(err, (got - want).abs().max().item())
+    assert err == 0, ("seq_load at the timed shape", err)
+    k_ms = time_ms(lambda: ops.seq_load(x, lanes), iters=10,
+                   queue_ahead=True)
+    p_ms = time_ms(lambda: ref.seq_load(x, lanes), iters=10,
+                   queue_ahead=True)
+    bound = (n * 4 + lanes * 4) / HBM_BW * 1e3
+    log(f"phase10/seq_load/hbm/lanes{lanes},bytes={n * 4},ms={k_ms:.4f},"
+        f"plain_ms={p_ms:.4f},library_ms={p_ms:.4f},bound_ms={bound:.4f},"
+        f"GBps={n * 4 / (k_ms * 1e-3) / 1e9:.2f},max_abs_err={err},"
+        f"launches={launches},seconds={time.perf_counter() - t_phase:.2f}")
+    del x
+    stats["memo"] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+                     "launches": launches, "fitted": fitted, "err": err}
+    return stats["memo"]
+
+
 def launch_counts() -> dict:
     """Every kernel's launch count (``kv_append`` is ``decode_attention``'s
     append kernel)."""
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.embedding_reduce import ops as er_ops
+    from repro_torch.kernels.memo_probe import ops as memo_ops
     from repro_torch.kernels.stream_copy import ops as sc_ops
     from repro_torch.kernels.wkv6 import ops as wkv_ops
     return {"embedding_reduce": er_ops.LAUNCHES, "stream_copy":
             sc_ops.LAUNCHES, "decode_attention": da_ops.LAUNCHES,
-            "kv_append": da_ops.APPEND_LAUNCHES, "wkv6": wkv_ops.LAUNCHES}
+            "kv_append": da_ops.APPEND_LAUNCHES, "wkv6": wkv_ops.LAUNCHES,
+            "memo_probe": memo_ops.LAUNCHES}
 
 
 def phase_figures() -> dict:
@@ -1891,11 +2126,28 @@ def phase_figures() -> dict:
     claim; returns each script's launches by kernel."""
     import torch
     from repro_torch.benchmarks import (bench_hotpaths, bench_serving,
-                                        fig8_dlrm, fig10_dsb, fig11_caption)
+                                        fig2_latency, fig3_seq_bw, fig4_dsa,
+                                        fig5_random, fig6_redis, fig8_dlrm,
+                                        fig10_dsb, fig11_caption)
+    from repro_torch.examples import quickstart, serve_tiered_kv
     gc.collect()
     torch.cuda.empty_cache()
     payloads = {"fig8": {}, "fig10": {}, "fig11": {}}
+    examples = {}
+
+    def example(name, fn):
+        """An example's printed lines go to stdout; its result is kept."""
+        examples[name] = fn([])
+        return []
     figures = (
+        ("fig2", fig2_latency.run),
+        ("fig3", fig3_seq_bw.run),
+        ("fig4", fig4_dsa.run),
+        ("fig5", fig5_random.run),
+        ("fig6", fig6_redis.run),
+        ("quickstart", lambda: example("quickstart", quickstart.main)),
+        ("serve_tiered_kv", lambda: example("serve_tiered_kv",
+                                            serve_tiered_kv.main)),
         ("fig8", lambda: fig8_dlrm.run(payload=payloads["fig8"])),
         ("fig10", lambda: fig10_dsb.run(payload=payloads["fig10"])),
         ("fig11", lambda: fig11_caption.run(payload=payloads["fig11"])),
@@ -1931,13 +2183,77 @@ def phase_figures() -> dict:
     assert all(n > 0 for n in audit["stream_copy_launches"]), audit
     assert per_figure["serving"].get("decode_attention", 0) > 0, per_figure
     assert per_figure["hotpaths"].get("stream_copy", 0) > 0, per_figure
-    log(f"phase9/checks,fig8_max_abs_err={fig8['max_abs_err']:.3g},"
+    for name in ("fig2", "fig3", "fig5", "quickstart"):
+        assert per_figure[name].get("memo_probe", 0) > 0, (name, per_figure)
+    for name in ("fig3", "fig4"):
+        assert per_figure[name].get("stream_copy", 0) > 0, (name, per_figure)
+    for name in ("fig6", "serve_tiered_kv"):
+        assert per_figure[name].get("decode_attention", 0) > 0, (
+            name, per_figure)
+    assert per_figure["quickstart"].get("embedding_reduce") == 1, per_figure
+    quick = examples["quickstart"]
+    assert quick["max_abs_err"] <= fig8_dlrm.MEASURED_ATOL, quick
+    assert [len(done) for done in examples["serve_tiered_kv"]] == [8] * 4
+    log(f"phase9/checks,quickstart_max_abs_err={quick['max_abs_err']:.3g},"
+        f"fig8_max_abs_err={fig8['max_abs_err']:.3g},"
         f"fig8_atol={fig8['atol']},fig10_stream_copy_launches="
         f"{act['stream_copy_launches']},fig10_launch_bound="
         f"{act['launch_bound']},fig11_audit_stream_copy_launches="
         f"{audit['stream_copy_launches']},fig11_audit_descriptors="
         f"{audit['descriptors']}")
     return {"per_figure": per_figure, "launches": total}
+
+
+def phase_full_gates() -> None:
+    """``--full-gates``: ``bench_hotpaths`` at 4096 pages (the repartition
+    gate on the reference's timing, one pass of each path) and
+    ``bench_serving`` at full size.  Every gate's result is printed; then
+    the phase fails if any gate failed."""
+    import torch
+    from repro_torch.benchmarks import bench_hotpaths, bench_serving
+    gc.collect()
+    torch.cuda.empty_cache()
+    failed = []
+    t0 = time.perf_counter()
+    out = bench_hotpaths.measure(smoke=False)
+    for row in bench_hotpaths.csv_rows(out):
+        log(f"full/row,{row}")
+    rep, act = out["repartition"], out["actuation"]
+    log(f"full/hotpaths/repartition/one_pass,pages={rep['n_pages']},"
+        f"speedup={rep['speedup']:.3f},legacy_s={rep['legacy_s']:.6f},"
+        f"new_s={rep['new_s']:.6f}")
+    log(f"full/hotpaths/actuation,speedup={act['speedup']:.3f},"
+        f"cow_s={act['cow_s']:.6f},donated_s={act['donated_s']:.6f},"
+        f"cow_copies={act['cow_full_shard_copies']},donated_copies="
+        f"{act['donated_full_shard_copies']},epochs={act['epochs']}")
+    try:
+        bench_hotpaths.check(out)
+    except AssertionError as e:
+        failed.append(f"bench_hotpaths: {e}")
+    log(f"full/hotpaths,seconds={time.perf_counter() - t0:.2f},"
+        f"gates_held={int(not failed)}")
+    t0 = time.perf_counter()
+    payload = bench_serving.measure(smoke=False)
+    for row in bench_serving.csv_rows(payload):
+        log(f"full/row,{row}")
+    m = payload["modes"]
+    n_failed = len(failed)
+    try:
+        bench_serving.check(payload)
+    except AssertionError as e:
+        failed.append(f"bench_serving: {e}")
+    log(f"full/serving,goodput_speedup="
+        f"{payload['sharing_goodput_speedup']:.3f},prefill_reduction="
+        f"{payload['prefill_token_reduction']:.3f},stall_sync_s="
+        f"{m['sync']['migration_stall_s']:.6f},stall_overlap_s="
+        f"{m['overlap']['migration_stall_s']:.6f},hidden_s="
+        f"{m['overlap']['migration_hidden_s']:.6f},goodput_sync="
+        f"{m['sync']['goodput_tok_s']:.1f},goodput_overlap="
+        f"{m['overlap']['goodput_tok_s']:.1f},"
+        f"seconds={time.perf_counter() - t0:.2f},"
+        f"gates_held={int(len(failed) == n_failed)}")
+    if failed:
+        raise AssertionError("full-size gates failed: " + "; ".join(failed))
 
 
 def main(argv=None) -> int:
@@ -1949,6 +2265,9 @@ def main(argv=None) -> int:
                     help="after the serving walk and the rwkv run, profile "
                          "a few decode steps of each (device time by "
                          "kernel, host time by function)")
+    ap.add_argument("--full-gates", action="store_true",
+                    help="last, run bench_hotpaths and bench_serving at full "
+                         "size with their gates")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1970,6 +2289,9 @@ def main(argv=None) -> int:
     phase_wkv6(stats)
     rwkv = phase_rwkv(stats, args.profile)
     phase_figures()
+    memo_res = phase_memo(stats)
+    if args.full_gates:
+        phase_full_gates()
     da, wkv = stats["da"], stats["wkv"]
     kernels = [
         {"name": "embedding_reduce", "route": "cuda",
@@ -2009,6 +2331,15 @@ def main(argv=None) -> int:
          "max_abs_err": wkv["err"], "ms": wkv["ms"],
          "plain_ms": wkv["plain_ms"], "bound_ms": wkv["bound_ms"],
          "bound_by": wkv["bound_by"], "library_ms": None},
+        {"name": "memo_probe", "route": "cuda",
+         "source": "src/repro_torch/csrc/memo_probe.cu",
+         "replaces": "src/repro/core/memo.py:70",
+         "launches": memo_res["launches"], "max_abs_err": memo_res["err"],
+         "ms": memo_res["ms"], "plain_ms": memo_res["plain_ms"],
+         "bound_ms": memo_res["bound_ms"], "bound_by": "bytes",
+         "library_ms": memo_res["plain_ms"],
+         "shape": "seq_load, 528 lanes over 1 GiB of HBM; plain and "
+                  "library: one torch.sum over the lanes"},
     ]
     print(card["card"])
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,6 @@
 """Figure harness of the port: the paper figures whose modules are ported.
 
-    python -m repro_torch.benchmarks.run [--only fig8|fig10|fig11]
+    python -m repro_torch.benchmarks.run [--only fig2|...|fig11]
                                          [--device cpu|cuda]
 
 Prints ``name,us_per_call,derived`` CSV (us_per_call = 0 for purely
@@ -18,7 +18,7 @@ import traceback
 
 from repro_torch.device import resolve_device
 
-FIGURES = ("fig8", "fig10", "fig11")
+FIGURES = ("fig2", "fig3", "fig4", "fig5", "fig6", "fig8", "fig10", "fig11")
 
 
 def main(argv=None) -> None:
@@ -28,8 +28,15 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
 
-    from repro_torch.benchmarks import fig8_dlrm, fig10_dsb, fig11_caption
+    from repro_torch.benchmarks import (fig2_latency, fig3_seq_bw, fig4_dsa,
+                                        fig5_random, fig6_redis, fig8_dlrm,
+                                        fig10_dsb, fig11_caption)
     figs = {
+        "fig2": lambda: fig2_latency.run(device=device),
+        "fig3": lambda: fig3_seq_bw.run(device=device),
+        "fig4": lambda: fig4_dsa.run(device=device),
+        "fig5": lambda: fig5_random.run(device=device),
+        "fig6": lambda: fig6_redis.run(device=device),
         "fig8": lambda: fig8_dlrm.run(device=device),
         "fig10": lambda: fig10_dsb.run(device=device),
         "fig11": lambda: fig11_caption.run(device=device),

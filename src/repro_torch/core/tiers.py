@@ -228,57 +228,54 @@ HOST_V5E = TierSpec(
 # ---------------------------------------------------------------------------
 # NVIDIA H100 SXM target: HBM3 fast tier + page-locked host DRAM behind PCIe
 # Gen5 x16, which the card's kernels read and write in place through unified
-# virtual addressing.  Bandwidths come from the data sheet or from
-# ``chip_smoke.py`` on an NVIDIA H100 80GB HBM3 at its 700 W power limit, as
-# noted beside them; every other field awaits the MEMO measure-mode port and
-# is a placeholder chosen only to keep the perfmodel well defined (no
-# contention modeled: collapse never triggers).
+# virtual addressing.  Every field but the link is MEMO's measure mode on the
+# card: ``chip_smoke.py`` phase 10 (``memo.calibrate``: load and store over
+# 1-528 lanes and a stream_copy into the tier on a 1 GiB buffer, random
+# blocks and a single-cycle chase over 256 MiB tables), run on three
+# machines with an NVIDIA H100 80GB HBM3 at its 700.00 W power limit, and
+# fitted once from the three runs' records (``tools/memo_medians.py``,
+# ``memo.fit_tier``: each measurement the median of its runs; a lane count
+# falls short of a sweep's peak only where every run reads it short).
+# Beside each value, [min, max] of the three runs' own fits.
 # ---------------------------------------------------------------------------
-H100_HBM_BW = 3.35e12  # data sheet (H100 SXM, 700 W)
-H100_HBM_BYTES = 80 * 10**9  # data sheet
 H100_PCIE_BW = 64 * GB  # PCIe Gen5 x16, one direction (data sheet)
 
 H100_HBM = TierSpec(
     name="h100-hbm",
     kind="hbm",
-    capacity_bytes=H100_HBM_BYTES,
-    # data sheet; chip_smoke phase 3 copies HBM->HBM at 1.41 TB/s each way
-    # (2.81 TB/s of traffic) and phase 4 reads random 256 B rows at
-    # 1.43 TB/s (H100 80GB HBM3, 700 W)
-    load_bw=H100_HBM_BW,
-    store_bw=H100_HBM_BW,
-    nt_store_bw=H100_HBM_BW,
-    load_latency_ns=600.0,  # placeholder: awaiting MEMO measure mode
-    chase_latency_ns=600.0,  # placeholder: awaiting MEMO measure mode
-    load_peak_streams=132,  # one stream per SM; awaiting MEMO
-    store_peak_streams=132,  # awaiting MEMO
-    load_collapse_streams=1 << 20,  # no collapse modeled; awaiting MEMO
-    store_collapse_streams=1 << 20,  # no collapse modeled; awaiting MEMO
-    collapse_factor=1.0,
+    capacity_bytes=85_017_493_504,  # cudaDeviceProp.totalGlobalMem (all three)
+    load_bw=3.10658e12,  # [3.10569e12, 3.10964e12]
+    store_bw=2.7634e12,  # [2.76203e12, 2.76522e12]
+    nt_store_bw=1.38884e12,  # stream_copy HBM->HBM writes [1.38763e12, 1.39066e12]
+    load_latency_ns=1008.57,  # 1 KiB random blocks, one lane [1007.82, 1009.21]
+    chase_latency_ns=331.793,  # a hop of the 256 MiB cycle [331.782, 332.362]
+    load_peak_streams=132,  # (all three)
+    store_peak_streams=132,  # (all three)
+    load_collapse_streams=1 << 20,  # no collapse up to 528 lanes (all three)
+    store_collapse_streams=1 << 20,  # no collapse up to 528 lanes (all three)
+    collapse_factor=1.0,  # (all three)
 )
 
 H100_HOST_PINNED = TierSpec(
     name="h100-host-pinned",
     kind="host",
-    capacity_bytes=96 * GiB,  # host RAM of a one-card machine; awaiting MEMO
-    # measured: the segment-list stream_copy pinned->HBM on a 256 MiB
-    # slab, chip_smoke.py phase 3, NVIDIA H100 80GB HBM3 at 700 W; the
-    # median of three runs on three machines (27.41, 30.47, 33.88 GB/s;
-    # tools/stream_copy_probe.py read 51.3 on a fourth).  Random 256 B rows
-    # read in place by embedding_reduce's cp.async ring: 28.25 GB/s.
-    load_bw=30.47 * GB,
-    store_bw=H100_PCIE_BW,  # awaiting MEMO
-    # measured: the segment-list stream_copy HBM->pinned on a 256 MiB
-    # slab, chip_smoke.py phase 3, NVIDIA H100 80GB HBM3 at 700 W; the
-    # median of the same three runs (44.21, 52.26, 52.57 GB/s)
-    nt_store_bw=52.26 * GB,
-    load_latency_ns=1_500.0,  # placeholder: awaiting MEMO measure mode
-    chase_latency_ns=1_500.0,  # placeholder: awaiting MEMO measure mode
-    load_peak_streams=132,  # awaiting MEMO
-    store_peak_streams=132,  # awaiting MEMO
-    load_collapse_streams=1 << 20,  # no collapse modeled; awaiting MEMO
-    store_collapse_streams=1 << 20,  # no collapse modeled; awaiting MEMO
-    collapse_factor=1.0,
+    capacity_bytes=108_447_924_224,  # the host's physical memory (all three)
+    # SM loads of pinned memory read at 25-31 GB/s from 2 lanes on two
+    # machines and at 48.5-51.3 GB/s from 4 lanes on the third; stores at
+    # 52 GB/s from 2 lanes on all three
+    load_bw=3.12764e10,  # [2.91873e10, 5.12448e10]
+    store_bw=5.26243e10,  # [5.26127e10, 5.26367e10]
+    nt_store_bw=3.34241e10,  # stream_copy HBM->pinned writes [3.14754e10, 3.77956e10]
+    load_latency_ns=3552.88,  # 1 KiB random blocks, one lane [3337.76, 3567.83]
+    chase_latency_ns=1245.46,  # a hop of the 256 MiB cycle [1238.66, 1320.25]
+    load_peak_streams=2,  # [2, 4]
+    store_peak_streams=2,  # (all three)
+    # no collapse measured: the runs' own fits put one at 2, 4 and 264
+    # lanes (factors 0.81-0.95), each from its own noise; the 50 GB/s
+    # machine reads every count from 4 lanes at its peak
+    load_collapse_streams=1 << 20,
+    store_collapse_streams=1 << 20,  # no collapse measured [64, none]
+    collapse_factor=1.0,  # [0.813512, 0.946959] in the runs' own fits
     link_bw=H100_PCIE_BW,
 )
 

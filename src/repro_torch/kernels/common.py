@@ -31,7 +31,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-KERNELS = ("embedding_reduce", "stream_copy", "decode_attention", "wkv6")
+KERNELS = ("embedding_reduce", "stream_copy", "decode_attention", "wkv6",
+           "memo_probe")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -81,6 +82,16 @@ class HostHold:
             self._release()
             if tensors:
                 self._held.append((event, tensors))
+
+    def keep_launched(self, tensors: Iterable[torch.Tensor],
+                      device: torch.device) -> None:
+        """Hold the host tensors among ``tensors`` until the launch just
+        queued on ``device``'s current stream has run."""
+        host = [t for t in tensors if not t.is_cuda]
+        if host:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(device))
+            self.keep(host, event)
 
     def release(self) -> None:
         """Drop every hold whose launch has completed, oldest first."""

@@ -29,11 +29,7 @@ def _launched(tensors, device: torch.device) -> None:
     """Count a launch just queued on ``device``'s current stream and hold
     its pinned operands until it has run."""
     LAUNCHES.bump()
-    host = [t for t in tensors if not t.is_cuda]
-    if host:
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(device))
-        HELD.keep(host, event)
+    HELD.keep_launched(tensors, device)
 
 
 def stream_copy(src: torch.Tensor, *, out_dtype: Optional[torch.dtype] = None,

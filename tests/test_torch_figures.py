@@ -10,6 +10,12 @@ wall-clock time are held through their JSON's non-timing fields instead.
 The hot-path sections run without their speedup gates here (a timing
 gate does not belong in a CPU test run); ``chip_smoke.py`` phase 9 runs
 the gated ``run`` on the card."""
+import ast
+import contextlib
+import io
+import runpy
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -19,6 +25,11 @@ import jax  # noqa: E402
 
 from benchmarks import bench_hotpaths as r_hot  # noqa: E402
 from benchmarks import bench_serving as r_serving  # noqa: E402
+from benchmarks import fig2_latency as r_fig2  # noqa: E402
+from benchmarks import fig3_seq_bw as r_fig3  # noqa: E402
+from benchmarks import fig4_dsa as r_fig4  # noqa: E402
+from benchmarks import fig5_random as r_fig5  # noqa: E402
+from benchmarks import fig6_redis as r_fig6  # noqa: E402
 from benchmarks import fig8_dlrm as r_fig8  # noqa: E402
 from benchmarks import fig10_dsb as r_fig10  # noqa: E402
 from benchmarks import fig11_caption as r_fig11  # noqa: E402
@@ -26,12 +37,22 @@ from repro.core.interleave import resolve_backend as r_backend  # noqa: E402
 from repro.models import registry as r_registry  # noqa: E402
 from repro_torch.benchmarks import bench_hotpaths as t_hot  # noqa: E402
 from repro_torch.benchmarks import bench_serving as t_serving  # noqa: E402
+from repro_torch.benchmarks import fig2_latency as t_fig2  # noqa: E402
+from repro_torch.benchmarks import fig3_seq_bw as t_fig3  # noqa: E402
+from repro_torch.benchmarks import fig4_dsa as t_fig4  # noqa: E402
+from repro_torch.benchmarks import fig5_random as t_fig5  # noqa: E402
+from repro_torch.benchmarks import fig6_redis as t_fig6  # noqa: E402
 from repro_torch.benchmarks import fig8_dlrm as t_fig8  # noqa: E402
 from repro_torch.benchmarks import fig10_dsb as t_fig10  # noqa: E402
 from repro_torch.benchmarks import fig11_caption as t_fig11  # noqa: E402
 from repro_torch.benchmarks import run as t_run  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.core import memo as t_memo  # noqa: E402
+from repro_torch.examples import quickstart as t_quickstart  # noqa: E402
+from repro_torch.examples import serve_tiered_kv as t_serve_kv  # noqa: E402
 from repro_torch.models import registry as t_registry  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
 
 #: the serving JSON's wall-clock fields (the migration hidden/exposed
 #: split is modeled, and compared)
@@ -171,6 +192,54 @@ def test_hotpaths_gates_are_the_reference_gates():
     t_hot.check(full)
 
 
+def _scripted_stopwatch(monkeypatch, seconds):
+    """``bench_hotpaths``' clock replaced by one that reads ``seconds`` in
+    order, and its collector pause by one that counts its uses."""
+    times = iter(seconds)
+    paused = []
+
+    def stopwatch(device):
+        return lambda: next(times)
+
+    @contextlib.contextmanager
+    def gc_paused():
+        paused.append(1)
+        yield
+    monkeypatch.setattr(t_hot, "stopwatch", stopwatch)
+    monkeypatch.setattr(t_hot, "gc_paused", gc_paused)
+    return times, paused
+
+
+def test_hotpaths_repartition_timing_protocol(monkeypatch):
+    """Intended divergence at smoke size: each repartition path gets an
+    untimed pass, then ``TIMED_PASSES`` timed passes in turns with the
+    collector paused, the fastest counting.  At full size (the
+    reference's acceptance bar) the reference's timing: one pass of each
+    path, legacy first, collector on."""
+    assert t_hot.TIMED_PASSES == 5
+    cpu = torch.device("cpu")
+    # (legacy, new) per pass; the untimed first pass is the fastest of all
+    script = [1e-6, 1e-6, 5.0, 1.0, 4.0, 2.0, 6.0, 0.5, 7.0, 3.0, 8.0, 4.0]
+    times, paused = _scripted_stopwatch(monkeypatch, script)
+    rep = t_hot.bench_repartition(64, 1, cpu)
+    assert (rep["legacy_s"], rep["new_s"], rep["speedup"]) == (4.0, 0.5, 8.0)
+    assert next(times, None) is None and len(paused) == 12
+    times, paused = _scripted_stopwatch(monkeypatch, [3.0, 1.0])
+    rep = t_hot.bench_repartition(64, 1, cpu, one_pass=True)
+    assert (rep["legacy_s"], rep["new_s"], rep["speedup"]) == (3.0, 1.0, 3.0)
+    assert next(times, None) is None and not paused
+    flags = []
+    monkeypatch.setattr(t_hot, "bench_repartition",
+                        lambda n, r, d, one_pass=False: flags.append(
+                            (n, one_pass)) or {})
+    for name in ("bench_descriptors", "bench_gather_scatter",
+                 "bench_actuation", "bench_trace_stability"):
+        monkeypatch.setattr(t_hot, name, lambda *a, **k: {})
+    t_hot.measure(smoke=True, device="cpu")
+    t_hot.measure(smoke=False, device="cpu")
+    assert flags == [(512, False), (t_hot.N_PAGES, True)]
+
+
 def _recording(module):
     """Wrap ``module._run_mode`` to keep each mode's generated tokens."""
     tokens = {}
@@ -235,6 +304,107 @@ def test_serving_json_matches_reference(served):
         f";prefill_avoided={t_pay['prefill_token_reduction']:.0%};cow={cow}")
 
 
+# -- Figs. 2-6 and the examples -------------------------------------------------
+MEMO_FIGURES = {"fig2": (r_fig2, t_fig2), "fig3": (r_fig3, t_fig3),
+                "fig4": (r_fig4, t_fig4), "fig5": (r_fig5, t_fig5)}
+
+
+def _modeled_and_measured(rows):
+    """(rows without a measurement, (name, derived key) of each measured
+    row): measured rows carry this machine's times."""
+    measured = [r.split(",") for r in rows if "/measured/" in r]
+    return ([r for r in rows if "/measured/" not in r],
+            [(m[0], m[2].split("=")[0]) for m in measured])
+
+
+@pytest.mark.parametrize("fig", sorted(MEMO_FIGURES))
+def test_memo_figures_match_reference(fig):
+    """Every modeled and claim row letter for letter; the measured rows
+    under the same names, each with a time."""
+    ref_mod, port_mod = MEMO_FIGURES[fig]
+    ref, port = ref_mod.run(), port_mod.run(device="cpu")
+    assert _modeled_and_measured(port) == _modeled_and_measured(ref)
+    assert all(float(r.split(",")[1]) > 0 for r in port if "/measured/" in r)
+    assert any("/measured/" in r for r in port)
+
+
+def test_fig2_measures_the_cards_hbm(monkeypatch):
+    """Intended divergence: on the card fig2's measured chase runs over a
+    single-cycle 256 MiB table in HBM (the default memory, recorded as
+    ``local``), past the 50 MB L2; on the CPU it keeps the reference's
+    table and steps."""
+    calls = []
+
+    def chase(**kwargs):
+        calls.append(kwargs)
+        return t_memo.Record("ptr-chase", "local", "load", 1, 4, 1e-3, 4)
+    monkeypatch.setattr(t_fig2.memo, "measure_pointer_chase", chase)
+    t_fig2.run(device="cpu")
+    assert calls == [dict(n_elems=1 << 20, steps=1 << 14,
+                          device=torch.device("cpu"))]
+    card = t_fig2.chase_args(torch.device("cuda", 0))
+    assert card == dict(n_elems=t_fig2.CARD_CHASE_ELEMS, steps=1 << 14,
+                        cycle=True, device=torch.device("cuda", 0))
+    assert "memory" not in card and t_fig2.CARD_CHASE_ELEMS * 4 >= 256 << 20
+
+
+def test_fig6_rows_match_reference():
+    """Every row, the engine's modeled seconds included, with the
+    reference's internvl2-2b ``.tiny()`` weights carried over."""
+    arch = r_registry.get(t_fig6.ARCH).tiny()
+    tree = arch.module.init(arch.cfg, jax.random.PRNGKey(0))
+    params = params_from_jax(t_registry.get(t_fig6.ARCH).tiny().cfg,
+                             jax.tree_util.tree_map(np.asarray, tree),
+                             device="cpu")
+    assert t_fig6.run(device="cpu", params=params) == r_fig6.run()
+
+
+def _printed(fn) -> list[str]:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        fn()
+    return out.getvalue().splitlines()
+
+
+def test_quickstart_prints_the_references_lines():
+    """The modeled tier table and placement plan letter for letter, the
+    chase record but for its time, the embedding-bag against the dense
+    sum within the reference's bound."""
+    ref = _printed(lambda: runpy.run_path(str(ROOT / "examples/quickstart.py"),
+                                          run_name="__main__"))
+    port = _printed(lambda: t_quickstart.main(["--device", "cpu"]))
+    assert len(port) == len(ref)
+    for p, r in zip(port, ref):
+        if r.startswith(" measured ptr-chase:"):
+            row = ast.literal_eval(p.split(":", 1)[1])  # Record.row()
+            want = ast.literal_eval(r.split(":", 1)[1])
+            assert row["seconds"] > 0
+            for key in ("seconds", "GBps"):
+                row.pop(key), want.pop(key)
+            assert row == want
+        elif r.startswith("tiered embedding-bag max err"):
+            assert float(p.rsplit(" ", 1)[1]) <= 1e-5
+        else:
+            assert p == r
+
+
+def _without_wall_times(line: str) -> str:
+    return " ".join(w for w in line.split()
+                    if not w.startswith(("wall=", "p50=", "p99=")))
+
+
+def test_serve_example_prints_the_references_modeled_lines():
+    """Four serving runs on internvl2-2b ``.tiny()`` over the tpu-v5e
+    topology: completions, modeled p50, slow fraction, prefix and
+    admission lines letter for letter; wall-clock times dropped."""
+    ref = _printed(lambda: runpy.run_path(
+        str(ROOT / "examples/serve_tiered_kv.py"), run_name="__main__"))
+    port = _printed(lambda: t_serve_kv.main(["--device", "cpu"]))
+    assert [_without_wall_times(x) for x in port] == [
+        _without_wall_times(x) for x in ref]
+    assert sum("modeled_p50=" in x for x in port) == 4
+
+
 def test_run_harness_on_the_cpu(capsys):
     with pytest.raises(SystemExit) as done:
         t_run.main(["--device", "cpu"])
@@ -243,7 +413,8 @@ def test_run_harness_on_the_cpu(capsys):
     assert out[0] == "name,us_per_call,derived"
     claims = [line for line in out if "/claims," in line]
     assert [c.split(",")[0] for c in claims] == [
-        "fig8/claims", "fig10/claims", "fig11/claims"]
+        f"{fig}/claims" for fig in ("fig2", "fig3", "fig4", "fig5", "fig6",
+                                    "fig8", "fig10", "fig11")]
     assert all(",0,ALL-VALIDATED (" in c for c in claims)
 
 

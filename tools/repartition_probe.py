@@ -2,7 +2,7 @@
 """Host time of ``bench_hotpaths``' repartition section, by part.
 
     python3 tools/repartition_probe.py [--device cuda|cpu] [--shifts N]
-                                       [--passes N]
+                                       [--passes N] [--protocols PAGES ...]
 
 The section times a capacity-padded ``InterleavedTensor`` (512 pages of
 64 x 16 fp32, 0.3 slow, the smoke size) shifted 0.35 <-> 0.3 through an
@@ -18,6 +18,11 @@ first):
   landing's ``stream_copy_segments``, the copy of the receiving shard,
   the page maps' upload), from wrappers around those functions (a part's
   time includes the parts it calls).
+
+With ``--protocols`` it prints instead, at each page count given (512 is
+the smoke size, 4096 the full size), the section's speedup under both
+timing protocols of ``bench_hotpaths.bench_repartition``: an untimed pass
+and the fastest of ``TIMED_PASSES``, and the reference's one pass.
 """
 from __future__ import annotations
 
@@ -48,6 +53,9 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--shifts", type=int, default=200)
     ap.add_argument("--passes", type=int, default=6)
+    ap.add_argument("--protocols", type=int, nargs="+", metavar="PAGES",
+                    help="print the speedup under both timing protocols "
+                         "at these page counts, and nothing else")
     args = ap.parse_args(argv)
     import torch
     from repro_torch.benchmarks import bench_hotpaths as hot
@@ -66,6 +74,18 @@ def main(argv=None) -> int:
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip().splitlines()[0])
         common.build(["stream_copy", "embedding_reduce"])
+
+    if args.protocols:
+        for n_pages in args.protocols:
+            repeats = hot.REPEATS if n_pages >= hot.N_PAGES else 2
+            for label, one_pass in (
+                    (f"best_of_{hot.TIMED_PASSES}", False), ("one_pass", True)):
+                r = hot.bench_repartition(n_pages, repeats, device,
+                                          one_pass=one_pass)
+                print(f"repartition/{label},pages={n_pages},speedup="
+                      f"{r['speedup']:.3f},legacy_s={r['legacy_s']:.6f},"
+                      f"new_s={r['new_s']:.6f}")
+        return 0
 
     def sync():
         if device.type == "cuda":
