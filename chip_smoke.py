@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one H100.
 
-    python3 chip_smoke.py            # the three slices, the figures, MEMO
+    python3 chip_smoke.py            # the slices, the figures, MEMO
     python3 chip_smoke.py --full-gates   # and the full-size hot-path and
                                          # serving gates
 
@@ -51,7 +51,8 @@ wrong result or a missing kernel launch:
    bf16, K/V in HBM and in pinned host memory, ragged lengths (1 and T),
    a fully masked partition row, stablelm-12b's head dim 160,
    recurrentgemma-9b's 16 x 1 heads of 256 (with its 2048-position
-   window as the mask); an fp32 q that bf16 cannot hold over bf16 K/V
+   window as the mask), deepseek-moe-16b's 16 x 16 heads of 128 (one
+   query head a KV head) over 1024 positions; an fp32 q that bf16 cannot hold over bf16 K/V
    (held to 2e-5); valid tiles only at the end of T; the append scatter
    likewise; then the partial form's time at the serving shape against
    its plain version, ``scaled_dot_product_attention`` (timed only) and
@@ -101,8 +102,11 @@ wrong result or a missing kernel launch:
    fig11 (its audit through the default mover's ``stream_copy``, within
    the launch bound, and one shard binding across its walk), fig11's
    control plane (smoke), ``bench_hotpaths`` (smoke, with its speedup
-   gates) and ``bench_serving`` (smoke: tokens equal across the four
-   modes, ``decode_attention`` every decode step).  Prints every row,
+   gates), ``bench_serving`` (smoke: tokens equal across the four
+   modes, ``decode_attention`` every decode step), ``bench_hotness``
+   (smoke: its five sections over an HBM and three pinned shards) and
+   the ``dlrm_embedding`` example; fig8's semantic section runs with
+   fig8.  Prints every row,
    each script's seconds and launches, and the phase's launches by
    kernel.
 10. MEMO: each ``memo_probe`` entry point against its plain version on
@@ -115,6 +119,28 @@ wrong result or a missing kernel launch:
    shapes the calibration and fig2 gave it, on both memories; then
    ``seq_load``'s time at 528 lanes over 1 GiB beside its plain version
    and byte bound, its outputs compared too.
+11. semantic DLRM: the DLRM slice's table (2^25 x 64 fp32, one key a
+   page) on ``h100_topology()`` with HBM holding 0.10 of the pages, Zipf
+   (1.1) traffic over a random key permutation.  Counts reset just
+   before and read just after: the lookups feed a ``HotnessLedger``,
+   the blind placement's bags/s, one semantic ``retier`` through the
+   mover (bag sums bit-equal, promoted pages > 0, ``stream_copy``
+   launches within one a batch of 16 descriptors plus one), the
+   semantic placement's bags/s (must beat blind), then a
+   ``HotSetCoordinator`` walk on measured bags/s with a hot-set flip
+   once it converged (must re-open and converge again).
+   ``embedding_reduce`` launches must equal the ``bag_reduce`` calls.
+12. MoE: deepseek-moe-16b at full width and depth, bf16, random weights
+   from a seeded generator.  Counts reset just before and read just
+   after: a prefill of 8 prompts of 512 tokens
+   (``forward_with_aux(last_only=True)``), then 32 greedy
+   ``decode_step``s over ``init_cache(8, 1024)`` (exactly 28 x 32
+   ``decode_attention`` launches).  One decode step is held against the
+   plain attention and a decode replay of 8 tokens against ``forward``;
+   the prefill's ``expert_counts`` feed a ``HotnessLedger`` that
+   re-tiers unit 0's expert up-projections (64 x 2048 x 1408 bf16) as a
+   ``SemanticTensor`` over HBM and pinned memory, its ``to_array()`` and
+   the logits rebuilt from it bit-equal to the originals.
 ``--full-gates`` then runs ``bench_hotpaths`` (4096 pages, the
 repartition timed the reference's one-pass way) and ``bench_serving``
 at full size, with their gates.
@@ -1045,7 +1071,8 @@ def phase_decode_attention(stats: dict) -> None:
                          (2, 32, 8, 160, 256),  # stablelm-12b's heads
                          (2, 16, 1, 160, 96),  # hd 160 at 16 heads a group
                          (2, 16, 1, 256, 128),  # recurrentgemma-9b's heads
-                         (4, 16, 1, 256, 1000))
+                         (4, 16, 1, 256, 1000),
+                         (8, 16, 16, 128, 1024))  # deepseek-moe-16b: G = 1
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
         for mem in ("hbm", "pinned"):
             for B, H, K, hd, T in shapes:
@@ -2125,11 +2152,13 @@ def phase_figures() -> dict:
     """The port's figure scripts on the card, each raising on a failed
     claim; returns each script's launches by kernel."""
     import torch
-    from repro_torch.benchmarks import (bench_hotpaths, bench_serving,
-                                        fig2_latency, fig3_seq_bw, fig4_dsa,
-                                        fig5_random, fig6_redis, fig8_dlrm,
-                                        fig10_dsb, fig11_caption)
-    from repro_torch.examples import quickstart, serve_tiered_kv
+    from repro_torch.benchmarks import (bench_hotness, bench_hotpaths,
+                                        bench_serving, fig2_latency,
+                                        fig3_seq_bw, fig4_dsa, fig5_random,
+                                        fig6_redis, fig8_dlrm, fig10_dsb,
+                                        fig11_caption)
+    from repro_torch.examples import (dlrm_embedding, quickstart,
+                                      serve_tiered_kv)
     gc.collect()
     torch.cuda.empty_cache()
     payloads = {"fig8": {}, "fig10": {}, "fig11": {}}
@@ -2154,6 +2183,9 @@ def phase_figures() -> dict:
         ("fig11_control", lambda: fig11_caption.run_control(smoke=True)[0]),
         ("hotpaths", lambda: bench_hotpaths.run(smoke=True)[0]),
         ("serving", lambda: bench_serving.run(smoke=True)[0]),
+        ("hotness", lambda: bench_hotness.run(smoke=True)[0]),
+        ("dlrm_embedding", lambda: example("dlrm_embedding",
+                                           dlrm_embedding.main)),
     )
     counters = launch_counts()
     for c in counters.values():
@@ -2191,6 +2223,16 @@ def phase_figures() -> dict:
         assert per_figure[name].get("decode_attention", 0) > 0, (
             name, per_figure)
     assert per_figure["quickstart"].get("embedding_reduce") == 1, per_figure
+    # fig8: the measured row's warm and timed launches, and the semantic
+    # section's two bag_reduce calls over an HBM and three pinned shards
+    assert per_figure["fig8"].get("embedding_reduce") == 4, per_figure
+    assert payloads["fig8"]["semantic"]["speedup"] > 1, payloads["fig8"]
+    for name in ("hotness", "dlrm_embedding"):
+        assert per_figure[name].get("embedding_reduce", 0) > 0, per_figure
+        assert per_figure[name].get("stream_copy", 0) > 0, per_figure
+    assert per_figure["dlrm_embedding"]["embedding_reduce"] == 2, per_figure
+    dlrm = examples["dlrm_embedding"]
+    assert dlrm["drift"] == 0.0 and dlrm["hot_inf_s"] > dlrm["blind_inf_s"]
     quick = examples["quickstart"]
     assert quick["max_abs_err"] <= fig8_dlrm.MEASURED_ATOL, quick
     assert [len(done) for done in examples["serve_tiered_kv"]] == [8] * 4
@@ -2256,6 +2298,466 @@ def phase_full_gates() -> None:
         raise AssertionError("full-size gates failed: " + "; ".join(failed))
 
 
+#: phase 11: the HBM share of the pages, the keys' Zipf exponent, the
+#: decay of the hotness ledger and the walk's epochs at most
+SEM_BUDGET, SEM_ALPHA, SEM_DECAY, SEM_WALK = 0.10, 1.1, 0.5, 30
+
+
+def zipf_traffic(n_keys: int, gen, device, n_batches: int = 4) -> tuple:
+    """``n_batches`` batches of BAG x LOOKUPS rows drawn Zipf(SEM_ALPHA) over
+    a random permutation of ``n_keys`` keys of PAGE_ROWS rows (a uniform
+    row within the key), made on the card; and the keys' lookup counts."""
+    import torch
+    perm = torch.randperm(n_keys, generator=gen, device=device)
+    p = 1.0 / (1.0 + torch.arange(n_keys, device=device,
+                                  dtype=torch.float64)) ** SEM_ALPHA
+    cdf = torch.cumsum(p / p.sum(), 0)
+    batches, counts = [], torch.zeros(n_keys, dtype=torch.int64,
+                                      device=device)
+    for _ in range(n_batches):
+        u = torch.rand((BAG, LOOKUPS), generator=gen, device=device,
+                       dtype=torch.float64)
+        rank = torch.clamp_max(torch.searchsorted(cdf, u), n_keys - 1)
+        keys = perm[rank]
+        counts += torch.bincount(keys.reshape(-1), minlength=n_keys)
+        batches.append(keys * PAGE_ROWS + torch.randint(
+            0, PAGE_ROWS, keys.shape, generator=gen, device=device))
+    return batches, counts.cpu().numpy()
+
+
+def hbm_lookup_share(st, batches) -> float:
+    """Share of the batches' lookups whose page lies in HBM (device 0)."""
+    import torch
+    dev = st.it.page_device
+    hits = sum(int((dev[b // PAGE_ROWS] == 0).sum()) for b in batches)
+    return hits / sum(b.numel() for b in batches)
+
+
+def move_routes(st, new_dev) -> list:
+    """Route-pure runs (a mover's descriptors) of a move to ``new_dev``,
+    counted by route: a mover batch never mixes routes, so the move's
+    ``stream_copy`` bound is ``launch_bound`` of these counts."""
+    import numpy as np
+    old_dev, old_local = st.it._host_map()
+    delta = np.nonzero(np.asarray(new_dev) != old_dev)[0]
+    routes: dict = {}
+    for s, d, _, _ in st.it._move_runs(delta, old_dev, old_local,
+                                       np.asarray(new_dev, np.int8)):
+        routes[(s, d)] = routes.get((s, d), 0) + 1
+    return list(routes.values())
+
+
+def phase_semantic(stats: dict, rows_log2: int) -> dict:
+    """Semantic DLRM: the DLRM slice's table on ``h100_topology()`` with
+    HBM holding SEM_BUDGET of the pages, Zipf traffic; blind placement
+    against a semantic re-tier at the same page budget, then a
+    HotSetCoordinator walk on measured bags/s with a hot-set flip."""
+    global BAG_CALLS
+    import numpy as np
+    import torch
+    from repro_torch.benchmarks.common import launch_bound
+    from repro_torch.core import (BulkMover, CaptionConfig, CaptionController,
+                                  EpochMetrics, HotnessLedger,
+                                  HotSetCoordinator, SemanticTensor,
+                                  h100_topology, stream_executor)
+    from repro_torch.core.telemetry import Telemetry
+    from repro_torch.kernels.embedding_reduce import ops as er_ops
+    from repro_torch.kernels.stream_copy import ops as sc_ops
+    dev = torch.device(DEVICE)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    topo = h100_topology()
+    names = (topo.fast.name, topo.slow.name)
+    rows = 1 << rows_log2
+    n_keys = rows // PAGE_ROWS  # one key a page
+    weights = (1.0 - SEM_BUDGET,)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    table = torch.randint(-8, 9, (rows, DIM), dtype=torch.float32,
+                          generator=gen, device=dev)
+    st = SemanticTensor.from_array(
+        table, rows_per_key=PAGE_ROWS, weights=weights, device_names=names,
+        page_rows=PAGE_ROWS, ledger=HotnessLedger(n_keys, decay=SEM_DECAY),
+        headroom=1024, placement="blind", device=dev)
+    del table
+    torch.cuda.synchronize()
+    ptrs = [p.data_ptr() for p in st.it.parts]
+    log(f"phase11/table,rows={rows},keys={n_keys},bytes={rows * DIM * 4},"
+        f"hbm_pages={int((st.key_device() == 0).sum())},"
+        f"shard_bytes={[p.numel() * 4 for p in st.it.parts]},"
+        f"build_s={time.perf_counter() - t_phase:.2f}")
+    batches, counts = zipf_traffic(n_keys, gen, dev)
+    want = [st.it.bag_reduce(b) for b in batches]
+    top = np.sort(counts)[::-1]
+    zipf_share = float(top[:int(round(SEM_BUDGET * n_keys))].sum()
+                       / top.sum())
+
+    counters = launch_counts()
+    for c in counters.values():
+        c.reset()
+    BAG_CALLS = 0
+    # the lookups feed the ledger (SemanticTensor.bag_reduce records them)
+    for b in batches:
+        st.bag_reduce(b)
+    BAG_CALLS += len(batches)
+    st.ledger.tick()
+    blind_rate = epoch_rate(st.it, batches)
+    blind_share = hbm_lookup_share(st, batches)
+    blind_ledger_share = st.hot_traffic_share()
+    routes = move_routes(st, st.plan_assignment(weights))
+    mover = BulkMover(topo, execute=stream_executor(), device=dev)
+    tel = Telemetry()
+    sc0 = sc_ops.LAUNCHES.count
+    d0 = mover.descriptors_submitted
+    t0 = time.perf_counter()
+    try:
+        st = st.retier(weights, mover=mover, telemetry=tel, donate=True)
+        torch.cuda.synchronize()
+    finally:
+        mover.close()
+    move_s = time.perf_counter() - t0
+    descs = mover.descriptors_submitted - d0
+    sc_move = sc_ops.LAUNCHES.count - sc0
+    r = st.last_retier
+    assert r["promoted_pages"] > 0, r
+    assert descs == sum(routes), (descs, routes)
+    assert 0 < sc_move <= launch_bound(routes), (sc_move, routes)
+    assert [p.data_ptr() for p in st.it.parts] == ptrs
+    for b, w in zip(batches, want):
+        got = st.bag_reduce(b)
+        assert torch.equal(got, w), "semantic re-tier changed a bag sum"
+    BAG_CALLS += len(batches)
+    sem_rate = epoch_rate(st.it, batches)
+    sem_share = hbm_lookup_share(st, batches)
+    log(f"phase11/retier,moved_pages={r['moved_pages']},"
+        f"promoted_pages={r['promoted_pages']},"
+        f"demoted_pages={r['demoted_pages']},descriptors={descs},"
+        f"descriptors_by_route={routes},stream_copy_launches={sc_move},"
+        f"launch_bound={launch_bound(routes)},seconds={move_s:.3f},"
+        f"GBps={r['moved_pages'] * PAGE_ROWS * DIM * 4 / move_s / 1e9:.2f},"
+        f"bags_bit_equal=1,data_ptr_same=1")
+    log(f"phase11/placement,hbm_share_of_pages={SEM_BUDGET},"
+        f"zipf_share_of_hottest_keys={zipf_share:.4f},"
+        f"blind_bags_per_s={blind_rate:.0f},"
+        f"semantic_bags_per_s={sem_rate:.0f},"
+        f"speedup={sem_rate / blind_rate:.3f},"
+        f"blind_hbm_lookup_share={blind_share:.4f},"
+        f"semantic_hbm_lookup_share={sem_share:.4f},"
+        f"blind_ledger_hot_share={blind_ledger_share:.4f},"
+        f"semantic_ledger_hot_share={st.hot_traffic_share():.4f}")
+    assert sem_rate > blind_rate, (sem_rate, blind_rate)
+    assert sem_share > blind_share, (sem_share, blind_share)
+
+    # the hot set as a walked coordinate on measured bags/s
+    cfg = CaptionConfig(epoch_steps=1, probe_epochs=1, step=0.02,
+                        min_step=0.01, hysteresis=0.005, drift_threshold=0.0,
+                        write_damp=False)
+    # from 0.02 above the capacity floor: the walk probes up, then down
+    ctl = CaptionController(topo, cfg, initial_fraction=1.0 - SEM_BUDGET
+                            + 0.02, min_fraction=1.0 - SEM_BUDGET)
+    coord = HotSetCoordinator(st, ctl, drift_threshold=0.5, donate=True)
+    flip_at = None
+    for epoch in range(SEM_WALK):
+        if ctl.converged and flip_at is None:
+            batches, counts = zipf_traffic(n_keys, gen, dev)
+            want = [coord.st.it.bag_reduce(b) for b in batches]
+            BAG_CALLS += len(batches)
+            flip_at = epoch
+        coord.st.ledger.record(counts)
+        rate = epoch_rate(coord.st.it, batches)
+        sc0 = sc_ops.LAUNCHES.count
+        t0 = time.perf_counter()
+        before = coord.st
+        d = coord.epoch(EpochMetrics(throughput=rate))
+        torch.cuda.synchronize()
+        moved = coord.st.last_retier["moved_pages"] \
+            if coord.st is not before else 0
+        sc_epoch = sc_ops.LAUNCHES.count - sc0
+        # a move without a mover: one gather launch and one landing
+        assert sc_epoch == (2 if moved else 0), (sc_epoch, moved)
+        log(f"phase11/walk/epoch{epoch:02d},f={ctl.fraction:.4f},"
+            f"bags_per_s={rate:.0f},phase={d.phase.value},"
+            f"drift={coord.drift():.3f},reopens={coord.reopens},"
+            f"moved_pages={moved},stream_copy_launches={sc_epoch},"
+            f"hbm_lookup_share={hbm_lookup_share(coord.st, batches):.4f},"
+            f"seconds={time.perf_counter() - t0:.3f}")
+        if flip_at is not None and ctl.converged and coord.reopens:
+            break
+    launches = {"embedding_reduce": er_ops.LAUNCHES.count,
+                "stream_copy": sc_ops.LAUNCHES.count}
+    calls = BAG_CALLS
+    assert flip_at is not None, "the walk never converged before the flip"
+    assert coord.reopens >= 1, "hot-set drift did not re-open the walk"
+    assert ctl.converged, "the walk did not converge again after the flip"
+    assert launches["embedding_reduce"] == calls, (launches, calls)
+    for b, w in zip(batches, want):
+        assert torch.equal(coord.st.it.bag_reduce(b), w)
+    final = epoch_rate(coord.st.it, batches)
+    log(f"phase11/walk/final,f={ctl.fraction:.4f},flip_epoch={flip_at},"
+        f"reopens={coord.reopens},converged=1,bags_per_s={final:.0f},"
+        f"hbm_lookup_share={hbm_lookup_share(coord.st, batches):.4f},"
+        f"launches={launches},bag_reduce_calls={calls},"
+        f"seconds={time.perf_counter() - t_phase:.2f}")
+    out = {"launches": launches, "blind_bags_per_s": blind_rate,
+           "semantic_bags_per_s": sem_rate}
+    stats["semantic"] = out
+    del st, coord, want, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+MOE_B, MOE_T, MOE_STEPS, MOE_CACHE, MOE_REPLAY = 8, 512, 32, 1024, 8
+#: unit 0's expert stack: HBM holds this share of its pages
+MOE_BUDGET = 0.25
+#: MoE units of the fp32 copy the checks hold to a bound
+MOE_FP32_UNITS = 3
+
+
+def checked_attend(errors: list):
+    """An ``attend=`` function that runs the ``decode_attention`` kernel
+    and its plain version on the same inputs (the layer's own), holds the
+    normalised outputs together (fp32 sums of bf16 K/V in other orders:
+    phase 5's bf16 tolerance) and passes the plain partials on;
+    ``errors`` gets each call's max abs error."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops, ref
+
+    def attend(q, k, v, valid):
+        acc, m, l = ops.attend_partial(q, k, v, valid)
+        ra, rm, rl = ref.attend_partial(q, k, v, valid)
+        got = acc / l.clamp_min(1e-30)[..., None]
+        want = ra / rl.clamp_min(1e-30)[..., None]
+        torch.testing.assert_close(got, want, atol=2e-2, rtol=0.2)
+        errors.append(float((got - want).abs().max()))
+        return ra, rm, rl
+
+    return attend
+
+
+def moe_fp32_cut(cfg, params, units: int):
+    """The leading dense layers and the first ``units`` MoE units of
+    ``params`` in fp32, with the config cut to their depth."""
+    import dataclasses
+    import torch
+    from repro_torch.models.moe import MoEParams
+
+    def f32(tree, n=None):
+        return {k: f32(v, n) if isinstance(v, dict) else
+                (v if n is None else v[:n]).to(torch.float32)
+                for k, v in tree.items()}
+    head = f32(params.head_dense.tree()) if params.head_dense else None
+    cut = MoEParams(params.embed.float(), head,
+                    f32(params.units.tree(), units),
+                    f32(params.final_norm.tree()),
+                    None if params.lm_head is None else params.lm_head.float())
+    c = dataclasses.replace(cfg, param_dtype="float32",
+                            n_layers=cfg.moe.first_dense
+                            + units * cfg.moe.every)
+    return c, cut
+
+
+def phase_moe(stats: dict) -> dict:
+    """deepseek-moe-16b at full width and depth, bf16, random weights: a
+    prefill with ``forward_with_aux(last_only=True)``, then greedy
+    ``decode_step``s over ``init_cache``, every attention through
+    ``decode_attention``; then the router's counts re-tier unit 0's
+    expert stack as a SemanticTensor over HBM and pinned memory."""
+    import dataclasses
+    import torch
+    from repro_torch.benchmarks.common import launch_bound
+    from repro_torch.core import (BulkMover, HotnessLedger, SemanticTensor,
+                                  h100_topology, stream_executor)
+    from repro_torch.core.telemetry import Telemetry
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.stream_copy import ops as sc_ops
+    from repro_torch.models import registry
+    dev = torch.device(DEVICE)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    arch = registry.get("deepseek-moe-16b")
+    cfg, mod = arch.cfg, arch.module
+    params = mod.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                      device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"phase12/model,arch={cfg.name},layers={cfg.n_layers},"
+        f"d_model={cfg.d_model},heads={cfg.n_heads}x{cfg.resolved_head_dim}"
+        f",kv_heads={cfg.n_kv_heads},experts={cfg.moe.n_experts},"
+        f"top_k={cfg.moe.top_k},params={n_params},"
+        f"param_bytes={sum(p.numel() * p.element_size() for p in params.parameters())},"
+        f"init_s={time.perf_counter() - t_phase:.2f}")
+    B, T, steps, L = MOE_B, MOE_T, MOE_STEPS, cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(5)
+    prompt = torch.randint(0, cfg.vocab, (B, T), generator=gen, device=dev)
+
+    # warm-up (cuBLAS heuristics, the kernel library's first load)
+    mod.forward_with_aux(cfg, params, prompt[:, :32], last_only=True)
+    warm = mod.init_cache(cfg, B, 8, device=dev)
+    for i in range(2):
+        mod.decode_step(cfg, params, warm, prompt[:, i])
+    del warm
+    torch.cuda.synchronize()
+
+    counters = launch_counts()
+    for c in counters.values():
+        c.reset()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    logits, aux = mod.forward_with_aux(cfg, params, prompt, last_only=True)
+    ev[1].record()
+    prefill_logits = logits[:, -1]
+    cache = mod.init_cache(cfg, B, MOE_CACHE, device=dev)
+    tok = torch.argmax(prefill_logits, -1)
+    generated = [tok]
+    bad = (~torch.isfinite(logits)).sum()
+    for _ in range(steps):
+        logits, cache = mod.decode_step(cfg, params, cache, tok)
+        bad += (~torch.isfinite(logits)).sum()
+        tok = torch.argmax(logits, -1)
+        generated.append(tok)
+    ev[2].record()
+    ev[2].synchronize()
+    launches = {k: c.count for k, c in counters.items() if c.count}
+    assert launches.get("decode_attention") == L * steps, launches
+    assert int(bad) == 0, f"{int(bad)} non-finite logits"
+    assert cache["len"].tolist() == [steps] * B
+    counts = aux["expert_counts"].cpu()
+    prefill_ms, decode_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    log(f"phase12/serve,batch={B},prompt={T},new_tokens={steps},"
+        f"cache_positions={MOE_CACHE},prefill_ms={prefill_ms:.2f},"
+        f"prefill_tokens_per_s={B * T / (prefill_ms * 1e-3):.1f},"
+        f"decode_ms_per_step={decode_ms / steps:.3f},"
+        f"decode_tokens_per_s={B * steps / (decode_ms * 1e-3):.1f},"
+        f"launches={launches},dropped={float(aux['dropped']):.4f},"
+        f"expert_counts_sum={int(counts.sum())},logits_finite=1,"
+        f"peak_mem_bytes={torch.cuda.max_memory_allocated()}")
+    busy = device_busy_share(
+        lambda: mod.decode_step(cfg, params, cache, tok))
+
+    def checks():
+        from repro_torch.kernels.decode_attention import ref as da_ref
+        res = {}
+        # one decode step from where the run stopped, kernel vs plain; each
+        # layer's kernel call held to the plain one on the layer's inputs
+        errs = []
+        a = {k: v.clone() for k, v in cache.items()}
+        b = {k: v.clone() for k, v in cache.items()}
+        got, _ = mod.decode_step(cfg, params, a, tok)
+        want, _ = mod.decode_step(cfg, params, b, tok,
+                                  attend=checked_attend(errs))
+        res["step_vs_plain"] = check_greedy(got, want, "decode step")
+        assert len(errs) == L, len(errs)
+        log(f"phase12/decode_attention_per_layer,layers={L},"
+            f"max_abs_err={max(errs):.3g}")
+        extra = torch.stack(generated[:MOE_REPLAY], 1)
+        # forward over B x 8 tokens gives each expert 8 slots and drops
+        # overflow, where a decode step (B tokens) drops none: the
+        # replay compares the two with capacity for every token (the
+        # reference's tiny config is dropless for the same reason)
+        dropless = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+
+        def replay(c_, p_):
+            c_ = dataclasses.replace(c_, moe=dropless.moe)
+            full = mod.forward(c_, p_, extra)
+            cc = mod.init_cache(c_, B, MOE_REPLAY, device=dev)
+            outs = []
+            for i in range(MOE_REPLAY):
+                lg, cc = mod.decode_step(c_, p_, cc, extra[:, i])
+                outs.append(lg)
+            return torch.stack(outs, 1), full
+        res["replay_vs_forward"] = check_greedy(*replay(cfg, params),
+                                                "replay")
+        # bf16 rounding flips near-tied routing choices of random weights;
+        # the same weights in fp32 (the dense layer and three units: the
+        # whole model in fp32 would not fit beside it) are held to a bound
+        c32, p32 = moe_fp32_cut(cfg, params, MOE_FP32_UNITS)
+        res["fp32/replay_vs_forward"] = check_greedy(
+            *replay(c32, p32), "fp32 replay", RWKV_FP32_BOUND)
+        a = mod.init_cache(c32, B, MOE_REPLAY, device=dev)
+        b = mod.init_cache(c32, B, MOE_REPLAY, device=dev)
+        for i in range(MOE_REPLAY):
+            got, a = mod.decode_step(c32, p32, a, extra[:, i])
+            want, b = mod.decode_step(c32, p32, b, extra[:, i],
+                                      attend=da_ref.attend_partial)
+        res["fp32/step_vs_plain"] = check_greedy(got, want, "fp32 step",
+                                                 RWKV_FP32_BOUND)
+        return res
+
+    for name, res in uncounted(checks).items():
+        log(f"phase12/{name},logits_max_abs_err={res['err']:.4g},"
+            f"logits_std={res['logits_std']:.4g},"
+            f"greedy_equal={res['greedy_equal']},"
+            f"greedy_compared={res['compared']}")
+    del cache
+
+    # the router's dispatch counts place unit 0's expert up-projections
+    topo = h100_topology()
+    w_up = params.units["moe"]["experts"]["w_up"]
+    E, D, F = w_up.shape[1:]
+    ledger = HotnessLedger(E, decay=0.5)
+    ledger.record(counts)
+    original = w_up[0].clone()
+    st = SemanticTensor.from_array(
+        w_up[0].reshape(E * D, F), rows_per_key=D, weights=(1 - MOE_BUDGET,),
+        device_names=(topo.fast.name, topo.slow.name), page_rows=D // 4,
+        ledger=ledger, headroom=E * 4, placement="blind", device=dev)
+    blind_share = st.hot_traffic_share()
+    routes = move_routes(st, st.plan_assignment((1 - MOE_BUDGET,)))
+    mover = BulkMover(topo, execute=stream_executor(), device=dev)
+    sc0, d0 = sc_ops.LAUNCHES.count, mover.descriptors_submitted
+    t0 = time.perf_counter()
+    try:
+        st = st.retier((1 - MOE_BUDGET,), mover=mover, telemetry=Telemetry(),
+                       donate=True)
+        torch.cuda.synchronize()
+    finally:
+        mover.close()
+    move_s = time.perf_counter() - t0
+    descs = mover.descriptors_submitted - d0
+    sc_move = sc_ops.LAUNCHES.count - sc0
+    r = st.last_retier
+    assert r["promoted_pages"] > 0, r
+    assert descs == sum(routes) and 0 < sc_move <= launch_bound(routes), (
+        descs, routes, sc_move)
+    rebuilt = st.to_array().reshape(E, D, F)
+    assert torch.equal(rebuilt, original), "expert stack changed"
+
+    def relogits():
+        sub = prompt[:2]
+        base = mod.forward(cfg, params, sub, last_only=True)
+        w_up[0].copy_(rebuilt)
+        try:
+            again = mod.forward(cfg, params, sub, last_only=True)
+        finally:
+            w_up[0].copy_(original)
+        return base, again
+
+    base, again = uncounted(relogits)
+    assert torch.equal(base, again), "logits changed with the re-tiered stack"
+    log(f"phase12/experts,unit=0,stack_bytes={original.numel() * 2},"
+        f"hbm_share_of_pages={MOE_BUDGET},moved_pages={r['moved_pages']},"
+        f"promoted_pages={r['promoted_pages']},descriptors={descs},"
+        f"descriptors_by_route={routes},stream_copy_launches={sc_move},"
+        f"launch_bound={launch_bound(routes)},seconds={move_s:.3f},"
+        f"blind_hot_share={blind_share:.4f},"
+        f"semantic_hot_share={st.hot_traffic_share():.4f},"
+        f"to_array_bit_equal=1,logits_bit_equal=1,"
+        f"device_busy_share_decode_step={busy},"
+        f"seconds={time.perf_counter() - t_phase:.2f}")
+    out = {"launches": launches, "retier_stream_copy_launches": sc_move,
+           "decode_tokens_per_s": B * steps / (decode_ms * 1e-3),
+           "prefill_tokens_per_s": B * T / (prefill_ms * 1e-3),
+           "busy": busy}
+    stats["moe"] = out
+    del st, params, original, rebuilt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
@@ -2278,20 +2780,31 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    card = phase_device()
+    t_run = time.perf_counter()
+
+    def timed(n, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        log(f"phase{n}/seconds,{time.perf_counter() - t0:.2f}")
+        return out
+
+    card = timed(1, phase_device)
     stats: dict = {}
-    phase_embedding_reduce(stats)
-    phase_stream_copy(stats)
-    res = phase_slice(stats, args.rows_log2)
+    timed(2, phase_embedding_reduce, stats)
+    timed(3, phase_stream_copy, stats)
+    res = timed(4, phase_slice, stats, args.rows_log2)
     er, sc = res["er"], res["sc"]
-    phase_decode_attention(stats)
-    serve = phase_serving(stats, args.profile)
-    phase_wkv6(stats)
-    rwkv = phase_rwkv(stats, args.profile)
-    phase_figures()
-    memo_res = phase_memo(stats)
+    timed(5, phase_decode_attention, stats)
+    serve = timed(6, phase_serving, stats, args.profile)
+    timed(7, phase_wkv6, stats)
+    rwkv = timed(8, phase_rwkv, stats, args.profile)
+    timed(9, phase_figures)
+    memo_res = timed(10, phase_memo, stats)
+    sem = timed(11, phase_semantic, stats, args.rows_log2)
+    moe = timed(12, phase_moe, stats)
     if args.full_gates:
-        phase_full_gates()
+        timed("_full_gates", phase_full_gates)
+    log(f"run/seconds,{time.perf_counter() - t_run:.2f}")
     da, wkv = stats["da"], stats["wkv"]
     kernels = [
         {"name": "embedding_reduce", "route": "cuda",
@@ -2301,6 +2814,9 @@ def main(argv=None) -> int:
          "max_abs_err": er["err"], "ms": er["ms"], "plain_ms": er["plain_ms"],
          "bound_ms": er["bound_ms"], "bound_by": "bytes",
          "library_ms": er["library_ms"],
+         "launches_by_path": {
+             "dlrm_walk": res["launches"]["embedding_reduce"],
+             "semantic_dlrm": sem["launches"]["embedding_reduce"]},
          "table_form": {k: er[k] for k in ("table_ms", "table_bound_ms",
                                            "table_library_ms")},
          "slow_0.10": {"routed_ms": er["routed_f010_ms"],
@@ -2309,6 +2825,10 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/csrc/stream_copy.cu",
          "replaces": "src/repro/kernels/stream_copy/kernel.py:102",
          "launches": res["launches"]["stream_copy"],
+         "launches_by_path": {
+             "dlrm_walk": res["launches"]["stream_copy"],
+             "semantic_dlrm": sem["launches"]["stream_copy"],
+             "moe_expert_retier": moe["retier_stream_copy_launches"]},
          "max_abs_err": sc["err"], "ms": sc["ms"],
          "plain_ms": sc["plain_ms"],
          "bound_ms": sc["bound_ms"], "bound_by": "bytes",
@@ -2321,6 +2841,9 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention/kernel.py:65",
          "launches": serve["launches"]["decode_attention"],
+         "launches_by_path": {
+             "serving_walk": serve["launches"]["decode_attention"],
+             "moe_decode": moe["launches"]["decode_attention"]},
          "max_abs_err": da["err"], "ms": da["ms"], "plain_ms": da["plain_ms"],
          "bound_ms": da["bound_ms"], "bound_by": "bytes",
          "library_ms": da["library_ms"]},

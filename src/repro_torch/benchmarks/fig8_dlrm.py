@@ -12,8 +12,11 @@ The modeled rows come from the paper presets and the perfmodel, as in the
 reference.  The measured row reduces 64 bags of 80 lookups over a
 (4, 1)-weighted ``InterleavedTensor``: on the card an HBM shard and a
 pinned host shard, one routed ``embedding_reduce`` launch per
-``bag_reduce``, held to the dense sum.  The reference's Zipf-skewed
-semantic section waits for the port's hotness layer.
+``bag_reduce``, held to the dense sum.  The Zipf-skewed semantic section
+places a table over the three-CXL-device preset (on the card an HBM shard
+and three pinned shards) blind, then by the hotness ledger its bag sums
+fed, at the same page budget: the modeled rate must rise and the sums
+stay the same bits.
 """
 from __future__ import annotations
 
@@ -112,6 +115,66 @@ def _measured_row(device: torch.device, payload: dict) -> str:
             f"rows_per_s={64*80/dt:.0f};launches={launches}")
 
 
+def _semantic_section(smoke: bool, payload: dict, device: torch.device
+                      ) -> list[str]:
+    """Zipf-skewed hotness lane over the three-CXL-device preset."""
+    from repro_torch.core.hotness import SemanticTensor
+    from repro_torch.core.tiers import paper_three_device_topology
+
+    topo = paper_three_device_topology()
+    names = (topo.fast.name,) + tuple(t.name for t in topo.slows)
+    n_keys, rpk = (64, 8) if smoke else (512, 8)
+    rows_total = n_keys * rpk
+    rng = np.random.default_rng(0)
+    # integer-valued fp32 rows: bag sums are order-independent, so the
+    # cross-placement equality below is bitwise
+    table = rng.integers(-8, 9, size=(rows_total, 64)).astype(np.float32)
+    # Zipf popularity over a random row->rank permutation (hot rows
+    # scattered in address space, the case blind interleave cannot win)
+    zipf = np.zeros(n_keys)
+    zipf[rng.permutation(n_keys)] = 1.0 / (1.0 + np.arange(n_keys)) ** 1.1
+    row_p = np.repeat(zipf, rpk)
+    idx = torch.as_tensor(rng.choice(rows_total, p=row_p / row_p.sum(),
+                                     size=(64, 80)), device=device)
+    w = torch.ones((64, 80), dtype=torch.float32, device=device)
+
+    budget = 0.25  # fast tier holds a quarter of the table
+    weights = tuple((1.0 - budget) * b for b in topo.bandwidth_weights())
+    st = SemanticTensor.from_array(
+        table, rows_per_key=rpk, weights=weights, device_names=names,
+        page_rows=2, headroom=rows_total // 2, placement="blind",
+        device=device)
+    out_blind = st.bag_reduce(idx, w)
+
+    def modeled(s):
+        dev, sc = s.key_device(), s.ledger.scores()
+        total = max(float(sc.sum()), 1e-12)
+        shares = tuple(float(sc[dev == i + 1].sum()) / total
+                       for i in range(len(topo.slows)))
+        return throughput_nd(topo.fast, topo.slows, shares, 32)
+
+    st.ledger.tick()  # bag_reduce recorded the touched rows
+    t_blind, share_blind = modeled(st), st.hot_traffic_share()
+    st = st.retier(weights)
+    t_sem, share_sem = modeled(st), st.hot_traffic_share()
+    out_sem = st.bag_reduce(idx, w)
+    assert torch.equal(out_blind, out_sem), \
+        "semantic re-tier changed the bag reduction"
+    assert t_sem > t_blind, (t_sem, t_blind)
+    payload["semantic"] = {
+        "fast_budget": budget,
+        "blind": {"hot_traffic": share_blind, "modeled_inf_s": t_blind},
+        "hotness": {"hot_traffic": share_sem, "modeled_inf_s": t_sem},
+        "speedup": t_sem / t_blind,
+        "retier": st.last_retier,
+    }
+    return [
+        f"fig8/semantic/zipf,0,blind={t_blind:.0f};hot={t_sem:.0f}"
+        f";x{t_sem / t_blind:.2f};hot_traffic={share_blind:.2f}"
+        f"->{share_sem:.2f}",
+    ]
+
+
 def run(smoke: bool = False, payload: Optional[dict] = None,
         device: DeviceLike = None) -> list[str]:
     device = resolve_device(device)
@@ -161,6 +224,7 @@ def run(smoke: bool = False, payload: Optional[dict] = None,
     assert 0.05 < f_planner < 0.45  # planner lands in the beneficial band
 
     rows.append(_measured_row(device, payload))
+    rows += _semantic_section(smoke, payload, device)
     payload["rows"] = list(rows)
     return rows
 

@@ -1,6 +1,7 @@
-"""Figure harness of the port: the paper figures whose modules are ported.
+"""Figure harness of the port: the paper figures whose modules are ported,
+and the semantic-tiering benchmark.
 
-    python -m repro_torch.benchmarks.run [--only fig2|...|fig11]
+    python -m repro_torch.benchmarks.run [--only fig2|...|fig11|hotness]
                                          [--device cpu|cuda]
 
 Prints ``name,us_per_call,derived`` CSV (us_per_call = 0 for purely
@@ -18,7 +19,8 @@ import traceback
 
 from repro_torch.device import resolve_device
 
-FIGURES = ("fig2", "fig3", "fig4", "fig5", "fig6", "fig8", "fig10", "fig11")
+FIGURES = ("fig2", "fig3", "fig4", "fig5", "fig6", "fig8", "fig10", "fig11",
+           "hotness")
 
 
 def main(argv=None) -> None:
@@ -28,9 +30,10 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
 
-    from repro_torch.benchmarks import (fig2_latency, fig3_seq_bw, fig4_dsa,
-                                        fig5_random, fig6_redis, fig8_dlrm,
-                                        fig10_dsb, fig11_caption)
+    from repro_torch.benchmarks import (bench_hotness, fig2_latency,
+                                        fig3_seq_bw, fig4_dsa, fig5_random,
+                                        fig6_redis, fig8_dlrm, fig10_dsb,
+                                        fig11_caption)
     figs = {
         "fig2": lambda: fig2_latency.run(device=device),
         "fig3": lambda: fig3_seq_bw.run(device=device),
@@ -40,6 +43,7 @@ def main(argv=None) -> None:
         "fig8": lambda: fig8_dlrm.run(device=device),
         "fig10": lambda: fig10_dsb.run(device=device),
         "fig11": lambda: fig11_caption.run(device=device),
+        "hotness": lambda: bench_hotness.run(device=device)[0],
     }
     print("name,us_per_call,derived")
     failures = 0

@@ -21,6 +21,7 @@ from repro_torch.core.policy import MemPolicy, PolicyKind
 from repro_torch.core.warmstart import WarmStartMemo
 from repro_torch.device import (DeviceLike, resolve_backend, resolve_device,
                                 shard_storage)
+from repro_torch.models.moe import MoEParams
 from repro_torch.models.rwkv import RwkvParams
 from repro_torch.models.transformer import DenseParams
 from repro_torch.serving.kv_cache import TieredKVCache
@@ -111,31 +112,45 @@ def memo_from_json(text: str) -> WarmStartMemo:
 
 
 def params_from_jax(cfg: ArchConfig, tree: dict, *,
-                    device: DeviceLike = None) -> DenseParams:
+                    device: DeviceLike = None):
     """The port's parameter module holding exactly the reference's
     parameter tree (its leaves read through ``np.asarray``): ``embed``,
     ``layers`` (stacked over a leading L axis), ``final_norm`` and, unless
     the embeddings are tied, ``lm_head`` (stored transposed).  An ``ssm``
-    config's tree becomes :class:`RwkvParams`, any other a
+    config's tree becomes :class:`RwkvParams`, a ``moe`` config's a
+    :class:`MoEParams` (``head_dense`` and ``units.{dense,moe}`` stacked,
+    the fp32 ``router`` among a unit's leaves), any other a
     :class:`DenseParams`."""
     device = resolve_device(device)
-    cls = RwkvParams if cfg.family == "ssm" else DenseParams
 
     def t(a) -> torch.Tensor:
         return tensor_from_numpy(np.asarray(a)).to(device)
+
+    def tree_of(node):
+        if isinstance(node, dict):
+            return {k: tree_of(v) for k, v in node.items()}
+        return t(node)
 
     if cfg.tie_embeddings == ("lm_head" in tree):
         raise ValueError(f"{cfg.name}: tie_embeddings={cfg.tie_embeddings} "
                          f"but the tree {'has' if 'lm_head' in tree else 'lacks'}"
                          f" lm_head")
+    lm_head = t(tree["lm_head"]) if "lm_head" in tree else None
+    final_norm = tree_of(tree["final_norm"])
+    if cfg.family == "moe":
+        units = tree_of(tree["units"])
+        head = tree_of(tree["head_dense"]) if "head_dense" in tree else None
+        n_head = 0 if head is None else head["ln1"]["scale"].shape[0]
+        n_units = units["moe"]["ln1"]["scale"].shape[0]
+        if n_head + n_units * cfg.moe.every != cfg.n_layers:
+            raise ValueError("layer stacks do not match cfg.n_layers")
+        return MoEParams(t(tree["embed"]), head, units, final_norm, lm_head)
+    cls = RwkvParams if cfg.family == "ssm" else DenseParams
     layers = {group: {k: t(v) for k, v in leaves.items()}
               for group, leaves in tree["layers"].items()}
     if layers["ln1"]["scale"].shape[0] != cfg.n_layers:
         raise ValueError("layer stack does not match cfg.n_layers")
-    return cls(
-        t(tree["embed"]), layers,
-        {k: t(v) for k, v in tree["final_norm"].items()},
-        t(tree["lm_head"]) if "lm_head" in tree else None)
+    return cls(t(tree["embed"]), layers, final_norm, lm_head)
 
 
 def kv_cache_from_jax(cache, *, device: DeviceLike = None) -> TieredKVCache:

@@ -3,8 +3,9 @@
 Demystifying CXL Memory (Sun et al., MICRO'23), ported to PyTorch and
 CUDA: tier characterization (tiers/perfmodel), placement policies
 (policy/planner/classifier), page interleaving (interleave), bulk
-movement (mover), capacity accounting (ledger), and the Caption
-controller and its fleet-level arbiter (caption, warmstart, arbiter).
+movement (mover), capacity accounting (ledger), the Caption
+controller and its fleet-level arbiter (caption, warmstart, arbiter),
+and hotness-driven semantic tiering (hotness).
 """
 from repro_torch.core.arbiter import (ArbiterConfig, CaptionArbiter,
                                       budgeted_config)
@@ -14,6 +15,8 @@ from repro_torch.core.caption import (
     EpochMetrics,
 )
 from repro_torch.core.classifier import AccessProfile, Boundedness, classify
+from repro_torch.core.hotness import (HotnessLedger, HotSetCoordinator,
+                                      SemanticTensor, semantic_assignment)
 from repro_torch.core.interleave import InterleavedTensor
 from repro_torch.core.ledger import CapacityError, TierLedger
 from repro_torch.core.mover import (BulkMover, Descriptor, double_buffer,
@@ -47,6 +50,8 @@ __all__ = [
     "ArbiterConfig", "CaptionArbiter", "budgeted_config",
     "CaptionConfig", "CaptionController", "EpochMetrics",
     "AccessProfile", "Boundedness", "classify",
+    "HotnessLedger", "HotSetCoordinator", "SemanticTensor",
+    "semantic_assignment",
     "InterleavedTensor", "CapacityError", "TierLedger",
     "BulkMover", "Descriptor", "double_buffer", "stream_executor",
     "BufferReq", "Decision", "Plan", "plan",

@@ -61,21 +61,3 @@ def donated_update(part: torch.Tensor, rows: torch.Tensor,
     if op == "add":
         return part.index_add_(0, rows, values)
     raise ValueError(f"unknown op {op!r}")
-
-
-def donated_kv_update(pool: torch.Tensor, slots, rows, data: torch.Tensor
-                      ) -> torch.Tensor:
-    """In place: ``pool[:, slots, rows] = data`` for a KV pool
-    ``(L, B, T, K, hd)`` and ``data`` ``(L, len(slots), len(rows), K, hd)``
-    — every layer's ``[slots x rows]`` page slab at once.  Rows at or
-    past ``T`` are dropped, as the reference's ``mode="drop"`` scatter
-    drops them.  Same exclusive-ownership contract as
-    :func:`donated_update`; returns ``pool`` itself."""
-    slots = torch.as_tensor(slots, dtype=torch.int64, device=pool.device)
-    rows = torch.as_tensor(rows, dtype=torch.int64, device=pool.device)
-    data = data.to(device=pool.device, dtype=pool.dtype)
-    keep = rows < pool.shape[2]
-    if not bool(keep.all()):
-        rows, data = rows[keep], data[:, :, keep]
-    pool[:, slots[:, None], rows[None, :]] = data
-    return pool

@@ -84,6 +84,9 @@ def main(argv=None):
         arch = arch.tiny()
     cfg = arch.cfg
     if cfg.family not in ("dense", "vlm"):
+        # The reference lists ``moe`` too, but its tiered decode step reads
+        # a dense tree's ``layers`` and stops with a KeyError on a MoE
+        # tree; the MoE family decodes through ``moe.decode_step``.
         raise SystemExit("tiered serving runs the dense and vlm families")
     params = arch.module.init(cfg, torch.Generator(device=device).manual_seed(0),
                               device=device)

@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` -> (config, model module).
 
 All ten configs are here; of the model families ``dense`` and ``vlm``
-(the transformer backbone) and ``ssm`` (rwkv6) are ported.  Asking for
-another family raises."""
+(the transformer backbone), ``ssm`` (rwkv6) and ``moe`` are ported.
+Asking for another family raises."""
 from __future__ import annotations
 
 import dataclasses
@@ -28,6 +28,7 @@ _FAMILY_MODULES = {
     "dense": "repro_torch.models.transformer",
     "vlm": "repro_torch.models.transformer",  # backbone
     "ssm": "repro_torch.models.rwkv",
+    "moe": "repro_torch.models.moe",
 }
 
 ARCH_IDS = tuple(_CONFIG_MODULES)

@@ -36,10 +36,14 @@ Where the port differs from the reference, by design:
 * Page moves are data moves: each route-pure run of a slot group is
   staged in its destination memory by the ``stream_copy`` kernel (the
   mover's executor, or a direct launch without a mover), then landed in
-  its free slots.  There is no host mirror of a pool; the host holds only
-  the page maps it plans with.
+  its free slots by one ``stream_copy`` segment-list launch (a rebuild's
+  staying pages ride the same launch).  The host never reads or writes a
+  pool, so only a fenced move (``wait=True``) waits for the stream; an
+  unfenced one returns once its launches are queued.  There is no host
+  mirror of a pool; the host holds only the page maps it plans with.
 * The page maps, positions and lengths live beside pool 0 (HBM on the
-  card); host copies of the page maps are cached for planning.
+  card); host copies of the page maps and positions are cached for
+  planning.
 """
 from __future__ import annotations
 
@@ -50,9 +54,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.donation import FULL_SHARD_COPIES, donated_kv_update
+from repro_torch.core.donation import FULL_SHARD_COPIES
 from repro_torch.core.interleave import (_policy_device_map,
                                          minimal_delta_weights,
+                                         page_segments,
                                          resolve_device_names,
                                          route_pure_runs)
 from repro_torch.core.mover import LANE_BULK, LANE_LATENCY, PINNED, Descriptor
@@ -61,7 +66,8 @@ from repro_torch.core.telemetry import GLOBAL_TELEMETRY
 from repro_torch.device import (DeviceLike, resolve_backend, resolve_device,
                                 shard_storage)
 from repro_torch.kernels.decode_attention import ops as da_ops
-from repro_torch.kernels.stream_copy.ops import stream_copy
+from repro_torch.kernels.stream_copy.ops import (stream_copy,
+                                                 stream_copy_segments)
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (apply_norm, dtype_of, mlp_apply,
                                        rope_tables, rotate)
@@ -170,6 +176,8 @@ class TieredKVCache:
             out.__dict__["_host_cache"] = self.__dict__["_host_cache"]
         if "page_local" not in changes and "_local_cache" in self.__dict__:
             out.__dict__["_local_cache"] = self.__dict__["_local_cache"]
+        if "pos_parts" not in changes and "_pos_cache" in self.__dict__:
+            out.__dict__["_pos_cache"] = self.__dict__["_pos_cache"]
         return out
 
     def _with_host(self, dev: np.ndarray, local: np.ndarray
@@ -218,6 +226,21 @@ class TieredKVCache:
             self.__dict__["_host_cache"] = cached
         return cached
 
+    def _host_pos(self) -> list:
+        """Host copies of ``pos_parts`` (cached while the tensors are the
+        same; a retile seeds the cache, so it need not read them back)."""
+        key = tuple(id(p) for p in self.pos_parts)
+        cached = self.__dict__.get("_pos_cache")
+        if cached is None or cached[0] != key:
+            cached = (key, [p.cpu().numpy() for p in self.pos_parts])
+            self.__dict__["_pos_cache"] = cached
+        return cached[1]
+
+    def _with_host_pos(self, pos: list) -> "TieredKVCache":
+        self.__dict__["_pos_cache"] = (tuple(id(p) for p in self.pos_parts),
+                                       pos)
+        return self
+
     def _host_local(self) -> np.ndarray:
         cached = self.__dict__.get("_local_cache")
         if cached is None:
@@ -230,10 +253,11 @@ class TieredKVCache:
                            **shard_storage(d, self.backend, self.device))
 
     def _copy_pool(self, d: int, pool: torch.Tensor) -> torch.Tensor:
-        """A copy of pool ``d`` in the same memory (pinned stays pinned)."""
+        """A copy of pool ``d`` in the same memory (pinned stays pinned):
+        one ``stream_copy`` launch on the card, in stream order."""
         out = torch.empty(tuple(pool.shape), dtype=pool.dtype,
                           **shard_storage(d, self.backend, self.device))
-        return out.copy_(pool)
+        return stream_copy(pool, out=out, device=self.device)
 
     def _dev(self, array, dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(array), dtype=dtype,
@@ -630,7 +654,8 @@ class TieredKVCache:
                                         dst=self._memory(r.dst), ready=ready))
             # One submission: descriptors batch (§6).  The landing needs
             # the copies, so the host waits until each is enqueued (the
-            # card-side wait is on each copy's ``done`` event).
+            # card-side wait is on each copy's ``done`` event); the landing
+            # is a launch on this stream, and nothing waits for it.
             futures = mover.issue(descs)
             for r, f in zip(runs, futures):
                 r.k, r.v = (list(x) for x in f.result().result)
@@ -656,33 +681,64 @@ class TieredKVCache:
                             **shard_storage(r.dst, self.backend, self.device))
                         out.append(stream_copy(slab, out=dst,
                                                device=self.device))
-        if self.device.type == "cuda":
-            # pinned pools are written (and copied) by the host below:
-            # every copy, and every kernel still reading or appending to
-            # the pools, must be done first
-            torch.cuda.current_stream(self.device).synchronize()
         return runs
 
-    def _land(self, pools_k: list, pools_v: list, runs, new_local_of
-              ) -> None:
-        """Write each run's staged slabs into their destination slots:
-        ``new_local_of(slot)`` gives the slot's new page->local row."""
+    def _land(self, pools_k: list, pools_v: list, runs, new_local_of,
+              keep=()) -> None:
+        """One ``stream_copy_segments`` call writes each run's staged slabs
+        into their destination slots (``new_local_of(slot)`` gives the
+        slot's new page->local row; consecutive slots coalesced, every
+        layer a row of the segment; rows past a pool's end dropped) and,
+        for a rebuild, copies ``keep``'s staying pages — ``(d, slots,
+        page segments)`` from old pools ``self.*_parts[d]`` into
+        ``pools_*[d]``.  On the card that is one launch in stream order:
+        the host touches no pinned pool and waits for nothing."""
         pt = self.page_t
-        at = np.arange(pt)
         L, K, hd, _ = self._dims()
+        pe = pt * K * hd
+        dsts = list(pools_k) + list(pools_v)
+        nd = len(pools_k)
+        srcs, segs = [], []
+
+        def add(src_id, src_stride, src_off, base, b, ps):
+            """Segments of page segments ``ps`` (src page, dst page, n) of
+            slot ``b`` into destination base ``base``, every layer a row."""
+            T = dsts[base].shape[2]
+            n = np.minimum(ps[:, 4], T // pt - ps[:, 3])
+            ok = n > 0
+            rows = np.empty((int(ok.sum()), 8), np.int64)
+            rows[:, 0], rows[:, 2], rows[:, 3] = src_id, src_stride, base
+            rows[:, 1] = src_off + ps[ok, 1] * pe
+            rows[:, 4] = b * T * K * hd + ps[ok, 3] * pe
+            rows[:, 5] = dsts[base].shape[1] * T * K * hd
+            rows[:, 6], rows[:, 7] = L, n[ok] * pe
+            segs.append(rows)
+
         for r in runs:
+            n = len(r.pages)
             for j, b in enumerate(r.slots):
                 b = int(b)
-                rows = (new_local_of(b)[r.pages].astype(np.int64)[:, None]
-                        * pt + at).reshape(-1)
-                n = rows.size
-                for pools, data in ((pools_k, r.k[j]), (pools_v, r.v[j])):
-                    target = pools[r.dst]
+                ps = page_segments(np.zeros(n), np.arange(n), np.zeros(n),
+                                   new_local_of(b)[r.pages])
+                for data, base in ((r.k[j], r.dst), (r.v[j], nd + r.dst)):
                     if data.is_cuda:
                         data.record_stream(torch.cuda.current_stream(
                             data.device))
-                    donated_kv_update(target, [b], rows,
-                                      data.reshape(L, 1, n, K, hd))
+                    srcs.append(data.reshape(-1))
+                    add(len(srcs) - 1, n * pe, 0, base, b, ps)
+        old = list(self.k_parts) + list(self.v_parts)
+        n_old = len(self.k_parts)
+        for d, slots, ps in keep:
+            for side in (0, 1):
+                pool = old[side * n_old + d]
+                srcs.append(pool.view(-1))
+                B_, T_old = pool.shape[1], pool.shape[2]
+                for b in slots:
+                    add(len(srcs) - 1, B_ * T_old * K * hd,
+                        int(b) * T_old * K * hd, side * nd + d, int(b), ps)
+        if segs:
+            stream_copy_segments(srcs, [p.view(-1) for p in dsts],
+                                 np.concatenate(segs), device=self.device)
 
     def _retile(self, new_dev: np.ndarray, *, mover=None,
                 fast_tier: Optional[str] = None,
@@ -720,6 +776,9 @@ class TieredKVCache:
             n_devices, policy_names, None, None))
         if out.prefix is not None:
             out = out._apply_prefix_sentinels()
+        if wait and self.device.type == "cuda":
+            # a fenced move: the host returns once every copy has landed
+            torch.cuda.current_stream(self.device).synchronize()
         return out
 
     def _apply_prefix_sentinels(self) -> "TieredKVCache":
@@ -744,7 +803,7 @@ class TieredKVCache:
         caps = self.capacity_pages()
         n_devices = len(self.k_parts)
         new_local = old_local.copy()
-        pos_np = [p.cpu().numpy().copy() for p in self.pos_parts]
+        pos_np = [p.copy() for p in self._host_pos()]
         for slots in groups.values():
             b0, sl = slots[0], np.asarray(slots)
             od, nd = old_dev[b0].astype(np.int64), new_dev[b0].astype(np.int64)
@@ -782,7 +841,7 @@ class TieredKVCache:
             page_local=self._dev(new_local, torch.int32),
             pos_parts=tuple(self._dev(p, torch.int32) for p in pos_np),
             page_device=self._dev(new_dev, torch.int8))
-        return out._with_host(new_dev.copy(), new_local)
+        return out._with_host(new_dev.copy(), new_local)._with_host_pos(pos_np)
 
     def _retile_rebuild(self, groups, old_dev, new_dev, old_local,
                         n_devices: int, runs) -> "TieredKVCache":
@@ -812,6 +871,7 @@ class TieredKVCache:
                  for d in range(n_devices)]
         FULL_SHARD_COPIES.bump(2 * n_devices)
         n_old = len(self.k_parts)
+        keep = []  # staying pages, old pool -> new pool, per slot group
         for slots in groups.values():
             b0 = slots[0]
             od, nd = old_dev[b0].astype(np.int64), new_dev[b0].astype(np.int64)
@@ -819,26 +879,20 @@ class TieredKVCache:
             nl = new_local[b0].astype(np.int64)
             for d in range(min(n_old, n_devices)):
                 sel = np.nonzero((od == d) & (nd == d))[0]
-                if sel.size == 0:
-                    continue
-                src = (ol[sel][:, None] * pt + at).ravel()
-                dst = (nl[sel][:, None] * pt + at).ravel()
-                for old, new in ((self.k_parts[d], k_new[d]),
-                                 (self.v_parts[d], v_new[d])):
-                    src_t = torch.as_tensor(src, device=old.device)
-                    dst_t = torch.as_tensor(dst, device=new.device)
-                    for b in slots:
-                        new[:, b].index_copy_(
-                            1, dst_t, old[:, b].index_select(1, src_t))
-        self._land(k_new, v_new, runs, lambda b: new_local[b])
+                if sel.size:
+                    sel = sel[np.argsort(ol[sel], kind="stable")]
+                    keep.append((d, slots, page_segments(
+                        np.zeros(sel.size), ol[sel], np.zeros(sel.size),
+                        nl[sel])))
+        self._land(k_new, v_new, runs, lambda b: new_local[b], keep)
+        pos_np = [_pad_pos(pos_list[d], caps[d] * pt)
+                  for d in range(n_devices)]
         out = self._evolve(
             k_parts=tuple(k_new), v_parts=tuple(v_new),
             page_local=self._dev(new_local, torch.int32),
-            pos_parts=tuple(
-                self._dev(_pad_pos(pos_list[d], caps[d] * pt), torch.int32)
-                for d in range(n_devices)),
+            pos_parts=tuple(self._dev(p, torch.int32) for p in pos_np),
             page_device=self._dev(new_dev, torch.int8))
-        return out._with_host(new_dev.copy(), new_local)
+        return out._with_host(new_dev.copy(), new_local)._with_host_pos(pos_np)
 
     # -- shared-prefix pool -------------------------------------------------------
     def with_prefix(self, pool_pages: int) -> "TieredKVCache":

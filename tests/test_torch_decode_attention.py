@@ -68,7 +68,8 @@ def cuda():
 
 # -- partial form: plain version vs the reference's attend_partial --------------
 @pytest.mark.parametrize("B,H,K,hd,T,_block",
-                         SWEEP + [(16, 24, 2, 128, 64, 64), RG_256])
+                         SWEEP + [(16, 24, 2, 128, 64, 64), RG_256,
+                                  (2, 16, 16, 128, 64, 64)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attend_partial_matches_reference(B, H, K, hd, T, _block, dtype):
     (qj, qt), (kj, kt), (vj, vt), valid = _inputs(B, H, K, hd, T, dtype,
@@ -318,6 +319,43 @@ def test_decode_attention_kernel_head_dim_160(cuda, dtype, memory):
     v = torch.randn((B, T, K, hd), generator=g).to(dtype)
     lengths = torch.tensor([1, 77, T])
     valid = torch.rand((B, T), generator=g) < 0.6
+    valid[0] = False
+    kk = k.to(cuda) if memory == "hbm" else k.pin_memory()
+    vv = v.to(cuda) if memory == "hbm" else v.pin_memory()
+    before = t_da.LAUNCHES.count
+    got = t_da.decode_attention(q.to(cuda), kk, vv, lengths.to(cuda))
+    acc, m, l = t_da.attend_partial(q.to(cuda), kk, vv, valid.to(cuda))
+    want = t_ref.decode_attention(q, k, v, lengths)
+    ra, rm, rl = t_ref.attend_partial(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert t_da.LAUNCHES.count == before + 2
+    torch.testing.assert_close(got.cpu(), want, atol=tol, rtol=tol * 10)
+    rows = valid.any(1)
+    torch.testing.assert_close(acc.cpu()[rows], ra[rows], atol=tol,
+                               rtol=tol * 10)
+    torch.testing.assert_close(m.cpu()[rows], rm[rows], atol=tol, rtol=tol)
+    torch.testing.assert_close(l.cpu()[rows], rl[rows], atol=tol,
+                               rtol=tol * 10)
+    assert bool((m[0] == t_ref.NEG_INF).all()) and not l[0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("memory", ["hbm", "pinned"])
+def test_decode_attention_kernel_one_query_head_a_kv_head(cuda, dtype,
+                                                          memory):
+    """deepseek-moe-16b's heads (16 query heads on 16 KV heads of 128,
+    G = 1: rows 1-15 of the bf16 body's 16-row tile are zero), as its
+    decode step calls the partial form (valid prefix of a 1024-position
+    cache), and the normalised form; ragged lengths, a masked row."""
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    g = torch.Generator().manual_seed(2)
+    B, H, K, hd, T = 8, 16, 16, 128, 1024
+    q = torch.randn((B, H, hd), generator=g).to(dtype)
+    k = torch.randn((B, T, K, hd), generator=g).to(dtype)
+    v = torch.randn((B, T, K, hd), generator=g).to(dtype)
+    lengths = torch.tensor([1, 2, 31, 32, 64, 500, 1023, T])
+    valid = torch.arange(T)[None, :] < lengths[:, None]
     valid[0] = False
     kk = k.to(cuda) if memory == "hbm" else k.pin_memory()
     vv = v.to(cuda) if memory == "hbm" else v.pin_memory()

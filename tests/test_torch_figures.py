@@ -2,16 +2,17 @@
 ``repro_torch.benchmarks`` against the reference's ``benchmarks``.
 
 Every modeled row (``us_per_call`` 0, or a derived model time) must read
-the same letter for letter, with two named exceptions: the reference's
-``jit_traces=1`` rows read ``shard_bindings=1`` on the port (one binding
-of the walk tensor's shards, what one trace certifies), and fig8's
-semantic rows wait for the port's hotness layer.  Rows that carry a
+the same letter for letter, with one named exception: the reference's
+``jit_traces=1`` (and ``traces=1``) rows read ``shard_bindings=1`` on the
+port (one binding of the walk tensor's shards, what one trace
+certifies).  Rows that carry a
 wall-clock time are held through their JSON's non-timing fields instead.
 The hot-path sections run without their speedup gates here (a timing
 gate does not belong in a CPU test run); ``chip_smoke.py`` phase 9 runs
 the gated ``run`` on the card."""
 import ast
 import contextlib
+import dataclasses
 import io
 import runpy
 from pathlib import Path
@@ -23,6 +24,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 
+from benchmarks import bench_hotness as r_hotness  # noqa: E402
 from benchmarks import bench_hotpaths as r_hot  # noqa: E402
 from benchmarks import bench_serving as r_serving  # noqa: E402
 from benchmarks import fig2_latency as r_fig2  # noqa: E402
@@ -35,6 +37,7 @@ from benchmarks import fig10_dsb as r_fig10  # noqa: E402
 from benchmarks import fig11_caption as r_fig11  # noqa: E402
 from repro.core.interleave import resolve_backend as r_backend  # noqa: E402
 from repro.models import registry as r_registry  # noqa: E402
+from repro_torch.benchmarks import bench_hotness as t_hotness  # noqa: E402
 from repro_torch.benchmarks import bench_hotpaths as t_hot  # noqa: E402
 from repro_torch.benchmarks import bench_serving as t_serving  # noqa: E402
 from repro_torch.benchmarks import fig2_latency as t_fig2  # noqa: E402
@@ -48,6 +51,7 @@ from repro_torch.benchmarks import fig11_caption as t_fig11  # noqa: E402
 from repro_torch.benchmarks import run as t_run  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core import memo as t_memo  # noqa: E402
+from repro_torch.examples import dlrm_embedding as t_dlrm_example  # noqa: E402
 from repro_torch.examples import quickstart as t_quickstart  # noqa: E402
 from repro_torch.examples import serve_tiered_kv as t_serve_kv  # noqa: E402
 from repro_torch.models import registry as t_registry  # noqa: E402
@@ -80,10 +84,12 @@ def fig8_rows():
 
 
 def test_fig8_modeled_rows_match_reference(fig8_rows):
-    ref, port, _ = fig8_rows
-    want = [r for r in ref if "/measured/" not in r and "/semantic/" not in r]
+    ref, port, payload = fig8_rows
+    want = [r for r in ref if "/measured/" not in r]
     assert [r for r in port if "/measured/" not in r] == want
-    assert any("/semantic/" in r for r in ref)  # omitted by the port
+    assert any("/semantic/" in r for r in port)
+    sem = payload["semantic"]
+    assert sem["speedup"] > 1 and sem["retier"]["moved_pages"] > 0
 
 
 def test_fig8_measured_row_is_one_routed_reduction(fig8_rows):
@@ -414,7 +420,7 @@ def test_run_harness_on_the_cpu(capsys):
     claims = [line for line in out if "/claims," in line]
     assert [c.split(",")[0] for c in claims] == [
         f"{fig}/claims" for fig in ("fig2", "fig3", "fig4", "fig5", "fig6",
-                                    "fig8", "fig10", "fig11")]
+                                    "fig8", "fig10", "fig11", "hotness")]
     assert all(",0,ALL-VALIDATED (" in c for c in claims)
 
 
@@ -423,3 +429,59 @@ def test_run_harness_defaults_to_the_card():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         t_run.main(["--only", "fig8"])
+
+
+# -- semantic tiering ----------------------------------------------------------------
+def test_hotness_rows_match_reference():
+    """Every section of ``bench_hotness --smoke`` in both packages, the moe
+    section over the reference's parameters carried across: the rows
+    letter for letter (the flip row's ``traces=1`` reads
+    ``shard_bindings=1``; the dlrm row's re-tier time is the port's), and
+    the JSON's non-timing fields equal."""
+    from repro.models import moe as r_moe
+    ref_rows, ref = r_hotness.run(smoke=True)
+    cfg = t_hotness.moe_config(t_hotness.SMOKE)
+    r_cfg = r_registry.get("deepseek-moe-16b").tiny().cfg
+    r_cfg = dataclasses.replace(r_cfg, moe=dataclasses.replace(
+        r_cfg.moe, n_experts=cfg.moe.n_experts, top_k=2))
+    tree = jax.tree_util.tree_map(np.asarray,
+                                  r_moe.init(r_cfg, jax.random.PRNGKey(0)))
+    rows, port = t_hotness.run(
+        smoke=True, device="cpu",
+        moe_params=params_from_jax(cfg, tree, device="cpu"))
+
+    def same_row(row: str) -> str:
+        name, us, derived = row.split(",", 2)
+        if name == "hotness/dlrm/bitexact":
+            us = "t"
+        return ",".join((name, us, derived.replace("traces=1",
+                                                   "shard_bindings=1")))
+    assert [same_row(r) for r in rows] == [same_row(r) for r in ref_rows]
+    assert float(rows[1].split(",")[1]) > 0
+
+    def plain(tree):
+        return _drop(tree, lambda k: k in ("retier_s", "traces",
+                                           "shard_bindings"))
+    assert plain(port) == plain(ref)
+    assert port["flip"]["shard_bindings"] == ref["flip"]["traces"] == 1
+
+
+def test_hotness_main_writes_its_json(tmp_path, capsys):
+    out = tmp_path / "hot.json"
+    t_hotness.main(["--smoke", "--device", "cpu", "--out", str(out)])
+    printed = capsys.readouterr().out
+    assert f"hotness/json,0,wrote={out}" in printed
+    assert "hotness/caption/walk" in printed and out.exists()
+
+
+def test_dlrm_example_prints_the_references_lines(monkeypatch):
+    """The placement reports, modeled rates, moves and the zero drift of
+    the bag sums, letter for letter."""
+    monkeypatch.setattr("sys.argv", ["dlrm_embedding.py"])
+    ref = _printed(lambda: runpy.run_path(
+        str(ROOT / "examples/dlrm_embedding.py"), run_name="__main__"))
+    got = {}
+    port = _printed(lambda: got.update(
+        t_dlrm_example.main(["--device", "cpu"])))
+    assert port == ref
+    assert got["drift"] == 0.0 and got["hot_inf_s"] > got["blind_inf_s"]

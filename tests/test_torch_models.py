@@ -47,12 +47,13 @@ def test_config_equal_field_by_field(arch):
 
 
 def test_registry_ports_dense_and_vlm_only():
-    """dense and vlm go to the transformer, ssm (rwkv6) to its own module;
-    the other families are not ported yet."""
+    """dense and vlm go to the transformer, ssm (rwkv6) and moe to their
+    own modules; the other families are not ported yet."""
     assert t_registry.ARCH_IDS == r_registry.ARCH_IDS
     ported = {"dense": "repro_torch.models.transformer",
               "vlm": "repro_torch.models.transformer",
-              "ssm": "repro_torch.models.rwkv"}
+              "ssm": "repro_torch.models.rwkv",
+              "moe": "repro_torch.models.moe"}
     for arch in ARCHS:
         cfg = t_registry.get_config(arch)
         if cfg.family in ported:
