@@ -141,6 +141,27 @@ wrong result or a missing kernel launch:
    re-tiers unit 0's expert up-projections (64 x 2048 x 1408 bf16) as a
    ``SemanticTensor`` over HBM and pinned memory, its ``to_array()`` and
    the logits rebuilt from it bit-equal to the originals.
+13. training: starcoder2-3b at full width and depth, bf16, random
+   weights from a seeded generator, ``TokenPipeline(seed=17)``, batch 8 x
+   seq 128 (the reference driver's defaults).  The planner's
+   optimizer-state split on ``h100_topology()``; 4 fused AdamW steps
+   with remat (losses finite, step ms, peak HBM); one gradient fed to
+   ``adamw.apply`` and to ``TieredAdamW(slow_fraction=0.25)`` (one
+   stacked MLP leaf, 1080 pages of pinned fp32 state): new parameters
+   within one bf16 spacing past lr x 2^-10 (the fused update clips in
+   bf16, which moves a first step's g / (|g| + eps) by <= 2^-10), the pinned
+   master cast to bf16 equal to the new parameter, the step's
+   ``stream_copy`` launches, counted from 0 around it, equal to one a
+   page load plus one a writeback run of 8, ``offload_bytes`` the
+   reference's formula; a repartition 0.25 -> 0 -> 0.25 through
+   ``BulkMover(execute=stream_executor())``, the state bit-equal, billed
+   bytes equal to ``caption.opt_bytes_{down,up}``, two launches a
+   descriptor at most; the tiered step's times (without and with a
+   mover), paging GB/s against the PCIe byte bound and the pinned tier's
+   modeled rate, the device-busy share, host pinned bytes; then
+   ``train.main`` at starcoder2-3b ``.tiny()`` (fp32) on the card and on
+   the CPU from the same weights, 12 steps, fused and ``--offload-fraction
+   0.5 --caption``: losses within 1e-4, Caption decisions identical.
 ``--full-gates`` then runs ``bench_hotpaths`` (4096 pages, the
 repartition timed the reference's one-pass way) and ``bench_serving``
 at full size, with their gates.
@@ -2758,6 +2779,326 @@ def phase_moe(stats: dict) -> dict:
     return out
 
 
+#: phase 13: the reference driver's defaults (batch, seq, data seed), the
+#: tiered share, the fused steps and the card-against-CPU run's steps
+TRAIN_B, TRAIN_S, TRAIN_SEED, TRAIN_SLOW = 8, 128, 17, 0.25
+TRAIN_FUSED_STEPS, TRAIN_TIMED_STEPS, TRAIN_TINY_STEPS = 4, 3, 12
+
+
+def bf16_gap(a, b, slack: float) -> tuple[float, float, float]:
+    """(max |a - b|, max |a - b| in bf16 spacings at max(|a|, |b|), max of
+    |a - b| - slack in those spacings): how far two bf16 tensors are apart,
+    and past an absolute ``slack``."""
+    import torch
+    a, b = a.float(), b.float()
+    m = torch.maximum(a.abs(), b.abs()).clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(m)) - 7)
+    d = (a - b).abs()
+    return (float(d.max()), float((d / ulp).max()),
+            float(((d - slack).clamp(min=0) / ulp).max()))
+
+
+def pinned_stats() -> str:
+    """The pinned allocator's byte counts (what it holds, rounding
+    included), where this PyTorch reports them."""
+    import torch
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    if stats is None:
+        return "not read"
+    return "|".join(f"{k}={v}" for k, v in stats().items()
+                    if "bytes" in k and "current" in k) or "not read"
+
+
+def train_tiny(device: str, extra: list, tree) -> tuple:
+    """``train.main`` at starcoder2-3b ``.tiny()`` (fp32) from the weights
+    ``tree`` (numpy): (losses, the Caption lines it printed)."""
+    import contextlib
+    import io
+    from repro_torch.convert import params_from_jax
+    from repro_torch.launch import train
+    from repro_torch.models.registry import get_config
+    cfg = get_config("starcoder2-3b").tiny()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        losses = train.main(
+            ["--arch", "starcoder2-3b", "--tiny", "--steps",
+             str(TRAIN_TINY_STEPS), "--batch", "2", "--seq", "16",
+             "--ckpt-every", "100", "--log-every", "6", "--device", device,
+             "--ckpt-dir", str(ROOT / "build" / "train_ckpt"), *extra],
+            params=params_from_jax(cfg, tree, device=device))
+    return losses, [ln for ln in out.getvalue().splitlines()
+                    if ln.startswith("caption")]
+
+
+def phase_training(stats: dict, profile: bool = False) -> dict:
+    """starcoder2-3b at full width and depth, bf16, random weights: the
+    planner's optimizer-state split on ``h100_topology()``; fused AdamW
+    steps with remat; one gradient fed to fused AdamW and to
+    ``TieredAdamW(slow_fraction=0.25)`` (new parameters within one bf16
+    ulp, the pinned master read back equal to the new parameter, the
+    step's ``stream_copy`` launches equal to one a page plus one a run of
+    8); a repartition round trip 0.25 -> 0 -> 0.25 through the mover,
+    bit-equal; the tiered step's times, paging rate and busy share; then
+    ``train.main`` at the tiny config on the card and on the CPU."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import BulkMover, h100_topology, stream_executor
+    from repro_torch.core.telemetry import Telemetry
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels.stream_copy import ops as sc_ops
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw, offload, schedules
+    from repro_torch.tree import named_leaves
+    dev = torch.device(DEVICE)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    arch = registry.get("starcoder2-3b")
+    cfg, mod = arch.cfg, arch.module
+    params = mod.init(cfg, torch.Generator(device=dev).manual_seed(13),
+                      device=dev)
+    leaves = named_leaves(params)
+    n_params = sum(p.numel() for _, p in leaves)
+    topo = h100_topology()
+    _, plan_frac, _ = train.plan_optimizer(n_params, topo)
+    log(f"phase13/model,arch={cfg.name},layers={cfg.n_layers},d_model="
+        f"{cfg.d_model},heads={cfg.n_heads}x{cfg.resolved_head_dim},"
+        f"kv_heads={cfg.n_kv_heads},d_ff={cfg.d_ff},vocab={cfg.vocab_padded},"
+        f"params={n_params},param_bytes="
+        f"{sum(p.numel() * p.element_size() for _, p in leaves)},"
+        f"init_s={time.perf_counter() - t_phase:.2f}")
+    log(f"phase13/plan,opt_state_bytes={12 * n_params},"
+        f"planned_slow_fraction={plan_frac:.4f},topology=h100")
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, schedule=schedules.warmup_cosine(
+        10, 100))
+    data = TokenPipeline(DataConfig(vocab=cfg.vocab_padded, batch=TRAIN_B,
+                                    seq=TRAIN_S, seed=TRAIN_SEED))
+
+    def batch_at(s):
+        return {k: torch.as_tensor(v).to(dev)
+                for k, v in data.batch_at(s).items()}
+
+    # (b) fused AdamW with remat
+    state = adamw.init_state(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_ms, grad_ms, losses = [], [], []
+    for s in range(TRAIN_FUSED_STEPS):
+        b = batch_at(s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = mod.loss_and_grad(cfg, params, b, remat=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        adamw.apply(opt_cfg, params, grads, state)
+        del grads
+        torch.cuda.synchronize()
+        fused_ms.append((time.perf_counter() - t0) * 1e3)
+        grad_ms.append((t1 - t0) * 1e3)
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated()
+    assert all(np.isfinite(losses)), losses
+    log(f"phase13/fused,steps={TRAIN_FUSED_STEPS},losses={losses},"
+        f"step_ms={[round(x, 2) for x in fused_ms]},"
+        f"loss_and_grad_ms={[round(x, 2) for x in grad_ms]},"
+        f"peak_hbm_bytes={peak}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) one gradient, both optimizers
+    batch = batch_at(TRAIN_FUSED_STEPS)
+    _, grads = mod.loss_and_grad(cfg, params, batch, remat=True)
+    fused_new = {k: p.detach().clone() for k, p in leaves}
+    state = adamw.init_state(fused_new)
+    adamw.apply(opt_cfg, fused_new, grads, state)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    tel = Telemetry()
+    opt = offload.TieredAdamW(opt_cfg, slow_fraction=TRAIN_SLOW, telemetry=tel,
+                              slow_device_names=topo.slow_names)
+    t0 = time.perf_counter()
+    st = opt.init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    (key, leaf), = st["slow"].items()
+    assert all(lf.block.is_pinned() for lf in st["slow"].values())
+    want_launches = opt.step_launches(st)
+    torch.cuda.synchronize()
+    sc_ops.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    _, st, m = opt.step(params, grads, st)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = sc_ops.LAUNCHES.reset()
+    assert launches == want_launches, (launches, want_launches)
+    want_bytes = offload.PAGE_ELEMS * 4 * 6 * leaf.n_pages
+    assert m["offload_bytes"] == want_bytes, (m["offload_bytes"], want_bytes)
+    # The fused update clips in bf16 (g * bf16(scale), rounded: relative
+    # error <= 2^-8), the tiered one in fp32.  At step 1 the update is
+    # g / (|g| + eps), which such an error moves by at most 2^-10, so the
+    # new parameters may differ by lr * 2^-10 before their bf16 rounding:
+    # each element is held to one bf16 spacing past that.
+    equal = sum(torch.equal(p, fused_new[k]) for k, p in leaves)
+    slack = float(m["lr"]) * 2.0 ** -10
+    gaps = [bf16_gap(p, fused_new[k], slack) for k, p in leaves]
+    max_abs = max(g[0] for g in gaps)
+    ulps = max(g[1] for g in gaps)
+    past = max(g[2] for g in gaps)
+    assert past <= 1.0, (past, ulps, max_abs, slack)
+    p_off = dict(leaves)[key]
+    master_bf16 = leaf.master[:leaf.size].to(dev).to(p_off.dtype).view(
+        p_off.shape)
+    assert torch.equal(master_bf16, p_off), "pinned master != new parameter"
+    del fused_new, master_bf16
+    log(f"phase13/one_step,offloaded={key},pages={leaf.n_pages},"
+        f"leaves_bit_equal={equal}/{len(leaves)},max_abs_diff={max_abs:.3g},"
+        f"max_bf16_spacings={ulps:.1f},clip_slack={slack:.3g},"
+        f"max_spacings_past_slack={past:.3f},"
+        f"grad_norm={float(m['grad_norm']):.4f},pinned_master_bit_equal=1,"
+        f"stream_copy_launches={launches},launch_formula={want_launches},"
+        f"offload_bytes={m['offload_bytes']},init_s={init_s:.2f},"
+        f"first_step_ms={step_s * 1e3:.1f}")
+
+    # (d) a repartition round trip through the mover; the state is kept
+    # on the card to compare, so the freed pinned block can be reused
+    rtel = Telemetry()
+    state_bytes = leaf.state_bytes
+    before = leaf.block.to(dev)
+    old_ptr = leaf.block.data_ptr()
+    p_before = p_off.clone()
+    del leaf
+    with BulkMover(topo, telemetry=rtel, execute=stream_executor(),
+                   device=dev) as mover:
+        opt.telemetry = rtel
+        sc_ops.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        st = opt.repartition(params, st, 0.0, mover=mover)
+        torch.cuda.synchronize()
+        up_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        st = opt.repartition(params, st, TRAIN_SLOW, mover=mover)
+        torch.cuda.synchronize()
+        down_s = time.perf_counter() - t0
+        rep_launches = sc_ops.LAUNCHES.reset()
+        descs = mover.descriptors_submitted
+    opt.telemetry = tel
+    back = st["slow"][key]
+    # the moments come back bit-equal; the master comes back as its
+    # parameter, which holds it in bf16 (the reference also rebuilds a
+    # paged-out master from the parameter)
+    old = dataclasses.replace(back, block=before)
+    now = dataclasses.replace(back, block=back.block.to(dev))
+    assert torch.equal(now.mu, old.mu) and torch.equal(now.nu, old.nu)
+    assert torch.equal(now.master, old.master.to(p_off.dtype).float())
+    assert torch.equal(p_off, p_before)
+    reused = int(back.block.data_ptr() == old_ptr)
+    del old, now
+    billed = sum(r.bytes_moved for r in rtel.routes.values())
+    down = rtel.counters["caption.opt_bytes_down"]
+    up = rtel.counters["caption.opt_bytes_up"]
+    assert billed == down + up == 2 * state_bytes, (billed, down, up)
+    assert descs == 2 and rep_launches <= 2 * descs, (descs, rep_launches)
+    del before, p_before
+    log(f"phase13/repartition,descriptors={descs},stream_copy_launches="
+        f"{rep_launches},launch_bound={2 * descs},billed_bytes={billed},"
+        f"opt_bytes_down={int(down)},opt_bytes_up={int(up)},"
+        f"page_in_s={up_s:.3f},page_out_s={down_s:.3f},"
+        f"page_in_GBps={state_bytes / up_s / 1e9:.2f},"
+        f"page_out_GBps={state_bytes / down_s / 1e9:.2f},"
+        f"moments_bit_equal=1,master_equals_parameter=1,"
+        f"pinned_block_reused={reused}")
+
+    # (e) times
+    def tiered_step():
+        opt.step(params, grads, st)
+
+    step_ms = []
+    for _ in range(TRAIN_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tiered_step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    with BulkMover(topo, telemetry=Telemetry(), execute=stream_executor(),
+                   device=dev) as mover:
+        opt.mover = mover
+        mover_ms = []
+        for _ in range(TRAIN_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tiered_step()
+            torch.cuda.synchronize()
+            mover_ms.append((time.perf_counter() - t0) * 1e3)
+        opt.mover = None
+    full_ms = []
+    for s in range(2):
+        b = batch_at(TRAIN_FUSED_STEPS + 1 + s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, g2 = mod.loss_and_grad(cfg, params, b, remat=True)
+        opt.step(params, g2, st)
+        del g2
+        torch.cuda.synchronize()
+        full_ms.append((time.perf_counter() - t0) * 1e3)
+        assert np.isfinite(float(loss))
+    busy = device_busy_share(tiered_step)
+    if profile:
+        profile_steps(tiered_step, "phase13/tiered_step", n=2)
+    paged = 2 * state_bytes
+    best = min(step_ms) / 1e3
+    duplex_bound_s = state_bytes / PCIE_BW
+    slow = topo.slows[0]
+    model_s = state_bytes / slow.load_bw + state_bytes / slow.store_bw
+    log(f"phase13/times,tiered_step_ms={[round(x, 1) for x in step_ms]},"
+        f"tiered_step_mover_ms={[round(x, 1) for x in mover_ms]},"
+        f"train_step_ms={[round(x, 1) for x in full_ms]},"
+        f"fused_step_ms={[round(x, 1) for x in fused_ms]},"
+        f"paged_bytes={paged},paging_GBps={paged / best / 1e9:.2f},"
+        f"pcie_bound_ms={duplex_bound_s * 1e3:.1f},pcie_one_way_bound_ms="
+        f"{2 * duplex_bound_s * 1e3:.1f},h100_topology_ms={model_s * 1e3:.1f},"
+        f"busy={busy},host_block_bytes={opt.pinned_bytes(st)},"
+        f"host_state_bytes={opt.host_bytes(st)},"
+        f"host_allocator={pinned_stats()}")
+    del grads, st, opt, params, leaves, p_off, back
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) the card against the CPU at the tiny config, same weights
+    from repro_torch.models import transformer
+    tiny = registry.get("starcoder2-3b").tiny().cfg
+    cpu_params = transformer.init(tiny, 3, device="cpu")
+    tree = {"embed": cpu_params.embed.numpy(),
+            "layers": {g: {k: p.numpy() for k, p in grp.items()}
+                       for g, grp in cpu_params.layers.items()},
+            "final_norm": {k: p.numpy()
+                           for k, p in cpu_params.final_norm.items()},
+            "lm_head": cpu_params.lm_head.numpy()}
+    tiny_runs = {}
+    for label, extra in (("fused", []),
+                         ("tiered_caption", ["--offload-fraction", "0.5",
+                                             "--caption",
+                                             "--caption-epoch-steps", "4"])):
+        card_l, card_c = train_tiny("cuda", extra, tree)
+        cpu_l, cpu_c = train_tiny("cpu", extra, tree)
+        diff = float(np.abs(np.array(card_l) - np.array(cpu_l)).max())
+        assert diff <= 1e-4 and card_c == cpu_c, (label, diff, card_c, cpu_c)
+        tiny_runs[label] = diff
+        log(f"phase13/tiny_{label},steps={TRAIN_TINY_STEPS},"
+            f"max_loss_diff={diff:.3g},caption_decisions={len(card_c)},"
+            f"final_loss={card_l[-1]:.4f}")
+    out = {"launches": {"training_step": launches,
+                        "training_repartition": rep_launches},
+           "tiered_step_ms": step_ms, "fused_step_ms": fused_ms,
+           "ulps": ulps, "past_slack": past, "tiny": tiny_runs}
+    log(f"phase13/done,seconds={time.perf_counter() - t_phase:.2f}")
+    stats["training"] = out
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
@@ -2765,8 +3106,9 @@ def main(argv=None) -> int:
                     help="table rows as a power of two (default 25: 8 GiB)")
     ap.add_argument("--profile", action="store_true",
                     help="after the serving walk and the rwkv run, profile "
-                         "a few decode steps of each (device time by "
-                         "kernel, host time by function)")
+                         "a few decode steps of each, and two tiered "
+                         "optimizer steps of the training phase (device "
+                         "time by kernel, host time by function)")
     ap.add_argument("--full-gates", action="store_true",
                     help="last, run bench_hotpaths and bench_serving at full "
                          "size with their gates")
@@ -2802,6 +3144,7 @@ def main(argv=None) -> int:
     memo_res = timed(10, phase_memo, stats)
     sem = timed(11, phase_semantic, stats, args.rows_log2)
     moe = timed(12, phase_moe, stats)
+    training = timed(13, phase_training, stats, args.profile)
     if args.full_gates:
         timed("_full_gates", phase_full_gates)
     log(f"run/seconds,{time.perf_counter() - t_run:.2f}")
@@ -2828,7 +3171,8 @@ def main(argv=None) -> int:
          "launches_by_path": {
              "dlrm_walk": res["launches"]["stream_copy"],
              "semantic_dlrm": sem["launches"]["stream_copy"],
-             "moe_expert_retier": moe["retier_stream_copy_launches"]},
+             "moe_expert_retier": moe["retier_stream_copy_launches"],
+             **training["launches"]},
          "max_abs_err": sc["err"], "ms": sc["ms"],
          "plain_ms": sc["plain_ms"],
          "bound_ms": sc["bound_ms"], "bound_by": "bytes",

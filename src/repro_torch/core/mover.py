@@ -28,7 +28,9 @@ completion of a :class:`MoveFuture` only says the copy was enqueued.  A
 batch whose descriptors each name a tensor ``dst`` (a view of the
 caller's staging buffer) is one ``stream_copy`` launch for the whole
 batch (:attr:`stream_executor` ``.batch``); descriptors, billing,
-telemetry, futures and writer accounting stay one per descriptor.
+telemetry, futures and writer accounting stay one per descriptor.  A
+:class:`Segments` payload (a segment list between contiguous bases,
+billed as the pages it covers) is one launch of its own.
 """
 from __future__ import annotations
 
@@ -85,6 +87,29 @@ def _leaf_size(x) -> int:
 
 
 @dataclasses.dataclass
+class Segments:
+    """A payload moved in one ``stream_copy_segments`` launch: the rows of
+    ``segs`` copy between the contiguous bases ``srcs`` and ``dsts``
+    (HBM or pinned host memory on the card; pageable host tensors take
+    the plain version).  ``nbytes`` is what the move bills: whole pages
+    of the state it moves, as the reference bills its padded pages."""
+
+    srcs: tuple
+    dsts: tuple
+    segs: np.ndarray
+    nbytes: int
+
+    def on_card(self) -> bool:
+        return any(t.is_cuda or t.is_pinned() for t in (*self.srcs, *self.dsts))
+
+    def run(self, device=None) -> tuple:
+        from repro_torch.kernels.stream_copy import ops as _stream_ops
+        _stream_ops.stream_copy_segments(self.srcs, self.dsts, self.segs,
+                                         device=device)
+        return self.dsts
+
+
+@dataclasses.dataclass
 class Descriptor:
     """One movement request (DSA work descriptor analogue)."""
 
@@ -119,10 +144,13 @@ class Descriptor:
         never travels at its source width — billing the pre-cast size
         would over/under-charge the arbiter."""
         leaves = _leaves(self.payload)
+        billed = sum(x.nbytes for x in leaves if isinstance(x, Segments))
+        leaves = [x for x in leaves if not isinstance(x, Segments)]
         if self.out_dtype is not None:
             item = _itemsize(self.out_dtype)
-            return sum(_leaf_size(x) * item for x in leaves)
-        return sum(_leaf_size(x) * _itemsize(x.dtype) for x in leaves)
+            return billed + sum(_leaf_size(x) * item for x in leaves)
+        return billed + sum(_leaf_size(x) * _itemsize(x.dtype)
+                            for x in leaves)
 
     @property
     def route(self) -> tuple[str, str, OpClass]:
@@ -201,6 +229,10 @@ def _execute_copy(payload, out_dtype=None, desc: Optional[Descriptor] = None):
     dst = desc.dst if desc is not None else None
 
     def _copy(x):
+        if isinstance(x, Segments):
+            if x.on_card():
+                raise ValueError("card memory moves through stream_executor()")
+            return x.run()
         if isinstance(x, torch.Tensor) and _on_card(x, dst):
             raise ValueError("card memory moves through stream_executor()")
         out = _host_copy(x, out_dtype)
@@ -273,6 +305,14 @@ def stream_executor(*, block_bytes_hint: int = 1 << 20
         dst = desc.dst if desc is not None else None
 
         def _copy(x):
+            if isinstance(x, Segments):
+                if not x.on_card():
+                    return x.run()
+                cuda = [t.device for t in (*x.srcs, *x.dsts) if t.is_cuda]
+                device = cuda[0] if cuda else torch.device(
+                    "cuda", torch.cuda.current_device())
+                _launch(device, [desc], lambda: x.run(device))
+                return x.dsts
             if isinstance(x, np.ndarray) or not _on_card(x, dst):
                 out = _host_copy(x, out_dtype)
                 return dst.copy_(out) if isinstance(dst, torch.Tensor) else out

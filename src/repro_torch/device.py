@@ -75,3 +75,21 @@ def host_to_device(array, dtype: torch.dtype,
         return torch.as_tensor(array, dtype=dtype, device=device)
     host = torch.as_tensor(array).to(dtype)
     return host.pin_memory().to(device, non_blocking=True)
+
+
+def host_block(nbytes: int, device: torch.device, *,
+               zero: bool = True) -> torch.Tensor:
+    """``nbytes`` host bytes (a ``uint8`` tensor) for slow-tier state served
+    to ``device``: page-locked for a card, pageable for the CPU; zeroed
+    unless ``zero=False`` (then it holds what the memory last held).
+
+    The card's block comes from PyTorch's pinned allocator, which rounds
+    a request up to a power of two and keeps a freed block for the next
+    request that fits.  (Host memory registered in place pins the exact
+    size, but the card's kernels read it at a third of the allocator's
+    rate: ``tools/offload_probe.py``.)"""
+    nbytes = max(int(nbytes), 1)
+    if device.type != "cuda":
+        return torch.zeros(nbytes, dtype=torch.uint8)
+    block = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    return block.zero_() if zero else block

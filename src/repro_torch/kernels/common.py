@@ -39,18 +39,23 @@ _loaded: dict[str, ctypes.CDLL] = {}
 
 
 class LaunchCounter:
-    """Kernel launches since the last reset (the main-path probe)."""
+    """Kernel launches since the last reset (the main-path probe); safe to
+    bump from several threads (a prefetching loader launches beside the
+    thread that consumes its pages)."""
 
-    __slots__ = ("count",)
+    __slots__ = ("count", "_lock")
 
     def __init__(self) -> None:
         self.count = 0
+        self._lock = threading.Lock()
 
     def bump(self, n: int = 1) -> None:
-        self.count += n
+        with self._lock:
+            self.count += n
 
     def reset(self) -> int:
-        out, self.count = self.count, 0
+        with self._lock:
+            out, self.count = self.count, 0
         return out
 
 

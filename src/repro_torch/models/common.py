@@ -8,6 +8,7 @@ packages carry the reference's parameters across
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -135,6 +136,18 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype,
     x = torch.randn((vocab, d), generator=gen, dtype=torch.float32,
                     device=device)
     return (x * 0.02).to(dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token NLL, fp32 accumulation; with ``mask``, the masked mean."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
+    return torch.mean(nll)
 
 
 def dtype_of(name: str) -> torch.dtype:

@@ -16,16 +16,20 @@ tensors.  ``loss`` comes with the training slice; the tiered serving path
 decodes through :func:`repro_torch.serving.kv_cache.tiered_decode_step`."""
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, Optional, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (apply_norm, dtype_of, embed_init,
-                                       mlp_apply, mlp_params, norm_params)
+                                       cross_entropy, mlp_apply, mlp_params,
+                                       norm_params)
+from repro_torch.tree import named_leaves
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -56,11 +60,24 @@ class DenseParams(nn.Module):
         decode step reads every layer every step)."""
         views = self.__dict__.get("_layer_views")
         if views is None:
-            views = [{g: {k: p[j] for k, p in grp.items()}
-                      for g, grp in self.layers.items()}
-                     for j in range(self.n_layers)]
+            with torch.no_grad():
+                views = [{g: {k: p[j] for k, p in grp.items()}
+                          for g, grp in self.layers.items()}
+                         for j in range(self.n_layers)]
             self.__dict__["_layer_views"] = views
         return views[i]
+
+    def layer_trees(self) -> list[dict]:
+        """Every layer's tree: the cached views, or, while autograd records
+        through the parameters, fresh ``unbind`` views of the stacked
+        leaves (one backward node a leaf, its gradient one ``[L, ...]``
+        tensor)."""
+        if not (torch.is_grad_enabled() and self.embed.requires_grad):
+            return [self.layer(i) for i in range(self.n_layers)]
+        split = {g: {k: torch.unbind(p) for k, p in grp.items()}
+                 for g, grp in self.layers.items()}
+        return [{g: {k: v[i] for k, v in grp.items()}
+                 for g, grp in split.items()} for i in range(self.n_layers)]
 
 
 def generator(seed: Union[int, torch.Generator], device: torch.device
@@ -188,14 +205,48 @@ def head_logits(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
 
 def forward(cfg: ArchConfig, params: DenseParams, tokens: torch.Tensor, *,
             prefix_embeds: Optional[torch.Tensor] = None,
-            last_only: bool = False) -> torch.Tensor:
-    """Logits (B,S,V) of ``tokens`` (B,S); (B,1,V) with ``last_only``."""
+            remat: bool = False, last_only: bool = False) -> torch.Tensor:
+    """Logits (B,S,V) of ``tokens`` (B,S); (B,1,V) with ``last_only``.
+    ``remat`` recomputes each layer in the backward pass (the reference's
+    per-layer ``jax.checkpoint``)."""
     x, positions = embed_tokens(params, tokens, prefix_embeds)
-    for i in range(params.n_layers):
-        x = _layer_fwd(cfg, x, params.layer(i), positions)
+    body = partial(_layer_fwd, cfg)
+    for lp in params.layer_trees():
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(body, x, lp, positions, use_reentrant=False)
+        else:
+            x = body(x, lp, positions)
     if last_only:
         x = x[:, -1:]
     return head_logits(cfg, params, x)
+
+
+def loss(cfg: ArchConfig, params: DenseParams, batch: dict, *,
+         remat: bool = False) -> torch.Tensor:
+    """Mean token NLL of ``batch`` (``tokens``, ``labels``, optional
+    ``mask`` and, for the vlm family, ``prefix_embeds``)."""
+    logits = forward(cfg, params, batch["tokens"],
+                     prefix_embeds=batch.get("prefix_embeds"), remat=remat)
+    return cross_entropy(logits, batch["labels"].to(logits.device),
+                         batch.get("mask"))
+
+
+def loss_and_grad(cfg: ArchConfig, params: DenseParams, batch: dict, *,
+                  remat: bool = False) -> tuple[torch.Tensor, dict]:
+    """(loss, {leaf name: gradient}) — ``jax.value_and_grad`` of
+    :func:`loss`; each parameter's ``requires_grad`` is restored after."""
+    names, leaves = zip(*named_leaves(params))
+    flags = [p.requires_grad for p in leaves]
+    try:
+        for p in leaves:
+            p.requires_grad_(True)
+        with torch.enable_grad():
+            value = loss(cfg, params, batch, remat=remat)
+            grads = torch.autograd.grad(value, leaves)
+    finally:
+        for p, flag in zip(leaves, flags):
+            p.requires_grad_(flag)
+    return value.detach(), dict(zip(names, grads))
 
 
 # ---------------------------------------------------------------------------

@@ -2,6 +2,7 @@
 """Where the time of the two full-size gates' loops goes, on the card.
 
     python3 tools/gate_profile.py [--epochs N] [--runs N] [--no-profile]
+                                  [--only actuation|serving]
 
 Prints the card's name and power limit, then:
 
@@ -162,6 +163,8 @@ def main(argv=None) -> int:
     ap.add_argument("--epochs", type=int, default=40)
     ap.add_argument("--runs", type=int, default=4)
     ap.add_argument("--no-profile", action="store_true")
+    ap.add_argument("--only", choices=("actuation", "serving"),
+                    help="run one of the two gates' loops")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -171,8 +174,10 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip(), flush=True)
-    actuation(args.epochs, not args.no_profile)
-    serving(args.runs, not args.no_profile)
+    if args.only != "serving":
+        actuation(args.epochs, not args.no_profile)
+    if args.only != "actuation":
+        serving(args.runs, not args.no_profile)
     return 0
 
 
