@@ -22,8 +22,10 @@ from repro_torch.core.warmstart import WarmStartMemo
 from repro_torch.device import (DeviceLike, resolve_backend, resolve_device,
                                 shard_storage)
 from repro_torch.models.moe import MoEParams
+from repro_torch.models.rglru import RglruParams
 from repro_torch.models.rwkv import RwkvParams
 from repro_torch.models.transformer import DenseParams
+from repro_torch.models.whisper import WhisperParams
 from repro_torch.serving.kv_cache import TieredKVCache
 from repro_torch.serving.prefix_cache import PrefixBlock
 
@@ -119,8 +121,11 @@ def params_from_jax(cfg: ArchConfig, tree: dict, *,
     the embeddings are tied, ``lm_head`` (stored transposed).  An ``ssm``
     config's tree becomes :class:`RwkvParams`, a ``moe`` config's a
     :class:`MoEParams` (``head_dense`` and ``units.{dense,moe}`` stacked,
-    the fp32 ``router`` among a unit's leaves), any other a
-    :class:`DenseParams`."""
+    the fp32 ``router`` among a unit's leaves), a ``hybrid`` config's an
+    :class:`RglruParams` (``units.{rec_a,rec_b,attn}`` stacked over the
+    units, ``tail_rec`` over the tail layers), an ``audio`` config's a
+    :class:`WhisperParams` (``enc_layers``, ``dec_layers``, ``enc_pos``,
+    ``dec_pos``; the head tied), any other a :class:`DenseParams`."""
     device = resolve_device(device)
 
     def t(a) -> torch.Tensor:
@@ -135,6 +140,20 @@ def params_from_jax(cfg: ArchConfig, tree: dict, *,
         raise ValueError(f"{cfg.name}: tie_embeddings={cfg.tie_embeddings} "
                          f"but the tree {'has' if 'lm_head' in tree else 'lacks'}"
                          f" lm_head")
+    if cfg.family in ("hybrid", "audio"):
+        out = tree_of(tree)
+        if cfg.family == "hybrid":
+            params = RglruParams(out)
+            n_layers = (params.n_units * len(cfg.block_pattern)
+                        + params.n_tail)
+        else:
+            params = WhisperParams(out)
+            n_layers = params.n_layers
+            if params.enc_layers.n_entries != cfg.encoder.n_layers:
+                raise ValueError("encoder stack does not match the config")
+        if n_layers != cfg.n_layers:
+            raise ValueError("layer stacks do not match cfg.n_layers")
+        return params
     lm_head = t(tree["lm_head"]) if "lm_head" in tree else None
     final_norm = tree_of(tree["final_norm"])
     if cfg.family == "moe":
@@ -204,3 +223,26 @@ def rwkv_cache_from_jax(cache: dict, *, device: DeviceLike = None) -> dict:
     device = resolve_device(device)
     return {k: tensor_from_numpy(np.asarray(cache[k])).to(device)
             for k in ("tm", "cm", "wkv", "len")}
+
+
+def rglru_cache_from_jax(cache: dict, *, device: DeviceLike = None) -> dict:
+    """A hybrid decode cache (``rec_a``, ``rec_b``, ``tail`` — each
+    ``{"conv", "h"}`` or None — ``k``, ``v``, ``len``) holding exactly a
+    reference cache's arrays, dtypes included."""
+    device = resolve_device(device)
+
+    def t(a) -> torch.Tensor:
+        return tensor_from_numpy(np.asarray(a)).to(device)
+    out = {k: t(cache[k]) for k in ("k", "v", "len")}
+    for k in ("rec_a", "rec_b", "tail"):
+        rec = cache[k]
+        out[k] = None if rec is None else {n: t(rec[n]) for n in ("conv", "h")}
+    return out
+
+
+def whisper_cache_from_jax(cache: dict, *, device: DeviceLike = None) -> dict:
+    """An audio decode cache (``k``, ``v``, ``xk``, ``xv``, ``len``)
+    holding exactly a reference cache's arrays, dtypes included."""
+    device = resolve_device(device)
+    return {k: tensor_from_numpy(np.asarray(cache[k])).to(device)
+            for k in ("k", "v", "xk", "xv", "len")}

@@ -1,7 +1,7 @@
 """Training driver: data pipeline -> loss and gradients -> AdamW (tiered
 through the slow tier when the planner spills) -> checkpoints.
 
-Runs the dense and vlm families on the card (the default) or, when told
+Runs every model family on the card (the default) or, when told
 ``--device cpu``, on the CPU.  Composes the deterministic pipeline, AdamW
 or :class:`~repro_torch.optim.offload.TieredAdamW` (its pages moved by
 ``stream_copy``), async checkpointing, straggler mitigation, and the
@@ -16,9 +16,9 @@ On the CPU, with a reduced model:
       --device cpu --steps 16 --batch 2 --seq 16
 
 Divergences from the reference: ``--devices`` defaults to ``h100`` and
-``--device`` to ``cuda``; the ``ssm``, ``moe``, ``hybrid`` and ``audio``
-families are refused (their losses are not ported); ``main`` takes
-``params=`` (a parameter module to start from); the default checkpoint
+``--device`` to ``cuda``; ``main`` takes ``params=`` (a parameter module
+to start from) and ``cfg=`` (a config to train in place of ``--arch``'s,
+of the same family); the default checkpoint
 directory is under the temporary directory; a straggler's re-dispatch of
 the fused step (which updates in place) waits for the first dispatch's
 result instead of applying the step twice.
@@ -26,11 +26,13 @@ result instead of applying the step twice.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import tempfile
 import threading
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
@@ -44,21 +46,10 @@ from repro_torch.core.telemetry import EpochWindow
 from repro_torch.core.warmstart import WarmStartMemo
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.device import resolve_device
-from repro_torch.models.registry import get as get_arch, get_config
+from repro_torch.models.registry import get as get_arch
 from repro_torch.optim import adamw, offload, schedules
 from repro_torch.runtime.straggler import StragglerMitigator
 from repro_torch.tree import named_leaves
-
-#: the families whose loss is ported
-TRAINED_FAMILIES = ("dense", "vlm")
-
-
-def check_family(arch_id: str) -> None:
-    family = get_config(arch_id).family
-    if family not in TRAINED_FAMILIES:
-        raise SystemExit(f"{arch_id}: training runs the dense and vlm "
-                         f"families; the {family!r} loss is not ported yet")
-
 
 def plan_optimizer(n_params: int, topo, slow_budget: float = 0.0):
     """(plan, slow fraction, per-slow-device weights or None) of the
@@ -86,11 +77,15 @@ def plan_optimizer(n_params: int, topo, slow_budget: float = 0.0):
 def build(arch_id: str, *, tiny: bool, batch: int, seq: int, lr: float,
           total_steps: int, offload_fraction: float | None = None,
           devices: str = "h100", slow_budget: float = 0.0, device=None,
-          params=None):
-    check_family(arch_id)
+          params=None, cfg=None):
     arch = get_arch(arch_id)
     if tiny:
         arch = arch.tiny()
+    if cfg is not None:
+        if cfg.family != arch.cfg.family:
+            raise ValueError(f"cfg is a {cfg.family!r} model, {arch_id} "
+                             f"a {arch.cfg.family!r} one")
+        arch = dataclasses.replace(arch, cfg=cfg)
     cfg = arch.cfg
     device = resolve_device(device)
     opt_cfg = adamw.AdamWConfig(
@@ -130,7 +125,7 @@ def once(fn):
     return run
 
 
-def main(argv=None, *, params=None):
+def main(argv=None, *, params=None, cfg=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="starcoder2-3b")
     ap.add_argument("--tiny", action="store_true")
@@ -169,7 +164,7 @@ def main(argv=None, *, params=None):
         args.arch, tiny=args.tiny, batch=args.batch, seq=args.seq,
         lr=args.lr, total_steps=args.steps,
         offload_fraction=args.offload_fraction, devices=args.devices,
-        slow_budget=args.slow_budget, device=device, params=params)
+        slow_budget=args.slow_budget, device=device, params=params, cfg=cfg)
     cfg, mod = arch.cfg, arch.module
     print(f"arch={cfg.name} params={n_params/1e6:.1f}M "
           f"tiered_opt={'on' if opt else 'off'}")
@@ -196,6 +191,7 @@ def main(argv=None, *, params=None):
 
     data = TokenPipeline(DataConfig(
         vocab=cfg.vocab_padded, batch=args.batch, seq=args.seq, seed=17))
+    param_dtype = named_leaves(params)[0][1].dtype
 
     def make_batch(raw: dict) -> dict:
         b = {k: torch.as_tensor(v).to(device) for k, v in raw.items()}
@@ -203,6 +199,12 @@ def main(argv=None, *, params=None):
             b["prefix_embeds"] = torch.zeros(
                 (args.batch, cfg.vision.n_prefix_tokens, cfg.d_model),
                 device=device)
+        if cfg.family == "audio":
+            # the reference's stub frames: the same draws every step
+            rng = np.random.default_rng(0)
+            b["frames"] = torch.as_tensor(rng.normal(
+                size=(args.batch, cfg.encoder.n_ctx, cfg.d_model)),
+                dtype=torch.float32).to(device=device, dtype=param_dtype)
         return b
 
     def fused_step(batch):

@@ -13,8 +13,8 @@ decode step over one layer's cache, full or ring-buffer (``window``);
 where the reference's per-partition attention is jnp, the port's goes
 through ``attend_partial`` and so runs the kernel on the card.  It
 writes the new K/V row into the cache in place and returns the same
-tensors.  The cross-attention variant (``kv_override``) comes with the
-audio family."""
+tensors.  ``attention(..., kv_override=(k, v, kv_positions))`` is the
+cross-attention of the audio family's decoder."""
 from __future__ import annotations
 
 import math
@@ -103,26 +103,42 @@ def attention(x: torch.Tensor, p: dict, *, n_heads: int, n_kv_heads: int,
               head_dim: int, positions: torch.Tensor, causal: bool = True,
               window: int = 0, rope_theta: float = 10_000.0,
               rope_pct: float = 1.0, use_rope: bool = True,
-              q_chunk: int = 1024) -> torch.Tensor:
+              q_chunk: int = 1024,
+              kv_override: Optional[tuple] = None) -> torch.Tensor:
     """Full-sequence attention; exact, q-chunked.  x: (B,S,D), positions:
     (B,S).  Returns (B,S,D).  Scores in the activation dtype, softmax in
-    fp32 over the finite ``NEG_INF`` mask, as the reference."""
+    fp32 over the finite ``NEG_INF`` mask, as the reference.
+    ``kv_override=(k, v, kv_positions)`` attends over given K/V (B,Sk,K,hd)
+    instead of x's (cross-attention: not causal, K not rotated)."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(x, p, n_heads, n_kv_heads, head_dim)
+    if kv_override is None:
+        q, k, v = _project_qkv(x, p, n_heads, n_kv_heads, head_dim)
+        kv_pos = positions
+        if use_rope:
+            k = apply_rope(k, kv_pos, rope_theta, rope_pct)
+    else:
+        q = x @ p["wq"]
+        if "bq" in p:
+            q = q + p["bq"]
+        q = q.reshape(B, S, n_heads, head_dim)
+        k, v, kv_pos = kv_override
+        causal = False
     if use_rope:
-        k = apply_rope(k, positions, rope_theta, rope_pct)
         q = apply_rope(q, positions, rope_theta, rope_pct)
-    neg = torch.tensor(NEG_INF, dtype=x.dtype, device=x.device)
+    Sk = k.shape[1]
 
     def block(q_blk: torch.Tensor, pos_blk: torch.Tensor) -> torch.Tensor:
         scores = _gqa_scores(q_blk, k)  # (B,K,G,C,S)
-        mask = torch.ones((B, pos_blk.shape[1], S), dtype=torch.bool,
+        mask = torch.ones((B, pos_blk.shape[1], Sk), dtype=torch.bool,
                           device=x.device)
         if causal:
-            mask &= pos_blk[:, :, None] >= positions[:, None, :]
+            mask &= pos_blk[:, :, None] >= kv_pos[:, None, :]
         if window:
-            mask &= pos_blk[:, :, None] - positions[:, None, :] < window
-        scores = torch.where(mask[:, None, None], scores, neg)
+            mask &= pos_blk[:, :, None] - kv_pos[:, None, :] < window
+        # a Python scalar, cast to the scores' dtype like the reference's
+        # constant (a device tensor made here would copy from the host
+        # and wait for the card every call)
+        scores = torch.where(mask[:, None, None], scores, NEG_INF)
         probs = torch.softmax(scores.to(torch.float32), dim=-1).to(x.dtype)
         return _gqa_out(probs, v)
 

@@ -8,10 +8,13 @@ packages carry the reference's parameters across
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.tree import named_leaves
 
 
 # ---------------------------------------------------------------------------
@@ -153,3 +156,96 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def dtype_of(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32,
             "float16": torch.float16}[name]
+
+
+# ---------------------------------------------------------------------------
+# Parameter trees and their gradients
+# ---------------------------------------------------------------------------
+def records_grad(module: nn.Module) -> bool:
+    """Whether autograd records through ``module``'s parameters now."""
+    return torch.is_grad_enabled() and any(
+        p.requires_grad for p in module.parameters())
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors as a module: each dict a submodule, each
+    tensor a frozen parameter of the same name, so ``state_dict`` keys are
+    the reference tree's paths (``units.moe.experts.w_up``)."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, ParamTree(v))
+            else:
+                self.register_parameter(
+                    k, nn.Parameter(v, requires_grad=False))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
+    def tree(self) -> dict:
+        return {**{k: p for k, p in self._parameters.items()},
+                **{k: m.tree() for k, m in self._modules.items()}}
+
+    def views(self, i: int) -> dict:
+        """Entry ``i`` of every stacked tensor, as a dict tree."""
+        return {**{k: p[i] for k, p in self._parameters.items()},
+                **{k: m.views(i) for k, m in self._modules.items()}}
+
+    def entries(self) -> list[dict]:
+        """Every entry of the stacked tensors as a dict tree: views made
+        once and cached (a decode step reads every layer every step), or,
+        while autograd records through the parameters, fresh ``unbind``
+        views (one backward node a leaf, its gradient one stacked
+        tensor)."""
+        if records_grad(self):
+            def split(node: "ParamTree") -> dict:
+                return {**{k: torch.unbind(p)
+                           for k, p in node._parameters.items()},
+                        **{k: split(m) for k, m in node._modules.items()}}
+
+            def pick(node: dict, i: int) -> dict:
+                return {k: pick(v, i) if isinstance(v, dict) else v[i]
+                        for k, v in node.items()}
+            parts = split(self)
+            return [pick(parts, i) for i in range(self.n_entries)]
+        cached = self.__dict__.get("_entries")
+        if cached is None:
+            with torch.no_grad():
+                cached = [self.views(i) for i in range(self.n_entries)]
+            self.__dict__["_entries"] = cached
+        return cached
+
+    @property
+    def n_entries(self) -> int:
+        """The leading (stacked) axis's length."""
+        return next(self.parameters()).shape[0]
+
+
+def loss_and_grad_of(loss: Callable) -> Callable:
+    """``loss_and_grad(cfg, params, batch, *, remat=False, **kw)`` for a
+    family's ``loss``: (loss, {leaf name: gradient}), as
+    ``jax.value_and_grad`` gives them; each parameter's ``requires_grad``
+    is restored after.  ``kw`` goes to ``loss``."""
+    def loss_and_grad(cfg, params: nn.Module, batch: dict, *,
+                      remat: bool = False, **kw):
+        names, leaves = zip(*named_leaves(params))
+        flags = [p.requires_grad for p in leaves]
+        try:
+            for p in leaves:
+                p.requires_grad_(True)
+            with torch.enable_grad():
+                value = loss(cfg, params, batch, remat=remat, **kw)
+                grads = torch.autograd.grad(value, leaves)
+        finally:
+            for p, flag in zip(leaves, flags):
+                p.requires_grad_(flag)
+        return value.detach(), dict(zip(names, grads))
+    loss_and_grad.__doc__ = (
+        f"(loss, {{leaf name: gradient}}) of :func:`{loss.__module__}."
+        f"loss`, as ``jax.value_and_grad`` gives them.")
+    return loss_and_grad

@@ -20,51 +20,28 @@ layers and the repeating unit (an optional dense layer and a MoE layer,
 ``units.{dense,moe}`` stacked over a leading axis.  ``routed_mlp``
 takes the single-device path; the reference's expert-parallel
 ``moe_mlp_ep`` (a mesh's all-to-all) comes with the pod tooling.
-``decode_step`` writes the cache in place, as the dense decode does;
-``loss`` comes with training.
+``decode_step`` writes the cache in place, as the dense decode does.
+``loss`` adds the routers' load-balance and z losses to the token NLL.
 """
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Callable, Optional, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, MoESpec
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as dense
-from repro_torch.models.common import (apply_norm, dtype_of, embed_init, he,
-                                       mlp_apply, mlp_params, norm_params)
-
-
-class ParamTree(nn.Module):
-    """A nested dict of tensors as a module: each dict a submodule, each
-    tensor a frozen parameter of the same name, so ``state_dict`` keys are
-    the reference tree's paths (``units.moe.experts.w_up``)."""
-
-    def __init__(self, tree: dict):
-        super().__init__()
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                self.add_module(k, ParamTree(v))
-            else:
-                self.register_parameter(
-                    k, nn.Parameter(v, requires_grad=False))
-
-    def __getitem__(self, key: str):
-        return getattr(self, key)
-
-    def tree(self) -> dict:
-        return {**{k: p for k, p in self._parameters.items()},
-                **{k: m.tree() for k, m in self._modules.items()}}
-
-    def views(self, i: int) -> dict:
-        """Entry ``i`` of every stacked tensor, as a dict tree."""
-        return {**{k: p[i] for k, p in self._parameters.items()},
-                **{k: m.views(i) for k, m in self._modules.items()}}
+from repro_torch.models.common import (ParamTree, apply_norm, cross_entropy,
+                                       dtype_of, embed_init, he,
+                                       loss_and_grad_of, mlp_apply,
+                                       mlp_params, norm_params)
 
 
 class MoEParams(nn.Module):
@@ -94,21 +71,20 @@ class MoEParams(nn.Module):
     def n_units(self) -> int:
         return self.units["moe"]["ln1"]["scale"].shape[0]
 
-    def _views(self) -> tuple[list, list]:
-        cached = self.__dict__.get("_layer_views")
-        if cached is None:
-            head = [self.head_dense.views(i) for i in range(self.n_head)]
-            units = [self.units.views(u) for u in range(self.n_units)]
-            cached = self.__dict__["_layer_views"] = (head, units)
-        return cached
+    def trees(self) -> tuple[list, list]:
+        """(the leading dense layers' trees, the units' ``{"moe": ...,
+        "dense": ...}`` trees): cached views, or fresh ones while autograd
+        records (:meth:`ParamTree.entries`)."""
+        head = [] if self.head_dense is None else self.head_dense.entries()
+        return head, self.units.entries()
 
     def head_layer(self, i: int) -> dict:
         """Leading dense layer ``i``'s parameters (cached views)."""
-        return self._views()[0][i]
+        return self.head_dense.entries()[i]
 
     def unit(self, u: int) -> dict:
         """Unit ``u``'s ``{"moe": ..., "dense": ...}`` (cached views)."""
-        return self._views()[1][u]
+        return self.units.entries()[u]
 
 
 # ---------------------------------------------------------------------------
@@ -292,9 +268,9 @@ def init(cfg: ArchConfig, seed: Union[int, torch.Generator] = 0, *,
 
 def forward(cfg: ArchConfig, params: MoEParams, tokens: torch.Tensor, *,
             prefix_embeds: Optional[torch.Tensor] = None,
-            last_only: bool = False) -> torch.Tensor:
+            remat: bool = False, last_only: bool = False) -> torch.Tensor:
     logits, _ = forward_with_aux(cfg, params, tokens,
-                                 prefix_embeds=prefix_embeds,
+                                 prefix_embeds=prefix_embeds, remat=remat,
                                  last_only=last_only)
     return logits
 
@@ -302,20 +278,26 @@ def forward(cfg: ArchConfig, params: MoEParams, tokens: torch.Tensor, *,
 def forward_with_aux(cfg: ArchConfig, params: MoEParams,
                      tokens: torch.Tensor, *,
                      prefix_embeds: Optional[torch.Tensor] = None,
-                     last_only: bool = False):
+                     remat: bool = False, last_only: bool = False):
     """(logits, aux): aux holds the mean ``lb_loss``/``z_loss`` over the
     units, the mean ``dropped`` share and ``expert_counts`` (E,) summed
-    over the units — the histogram a :class:`HotnessLedger` records."""
+    over the units — the histogram a :class:`HotnessLedger` records.
+    ``remat`` recomputes each layer in the backward pass."""
     x, positions = dense.embed_tokens(params, tokens, prefix_embeds)
-    for i in range(params.n_head):
-        x = dense._layer_fwd(cfg, x, params.head_layer(i), positions)
+    dense_fwd = partial(dense._layer_fwd, cfg)
+    moe_fwd = partial(_moe_layer_fwd, cfg)
+    if remat and torch.is_grad_enabled():
+        dense_fwd = partial(checkpoint, dense_fwd, use_reentrant=False)
+        moe_fwd = partial(checkpoint, moe_fwd, use_reentrant=False)
+    heads, units = params.trees()
+    for lp in heads:
+        x = dense_fwd(x, lp, positions)
     lb = zl = 0.0
     dropped, counts = [], []
-    for u in range(params.n_units):
-        up = params.unit(u)
+    for up in units:
         if "dense" in up:
-            x = dense._layer_fwd(cfg, x, up["dense"], positions)
-        x, aux = _moe_layer_fwd(cfg, x, up["moe"], positions)
+            x = dense_fwd(x, up["dense"], positions)
+        x, aux = moe_fwd(x, up["moe"], positions)
         lb, zl = lb + aux["lb_loss"], zl + aux["z_loss"]
         dropped.append(aux["dropped"])
         counts.append(aux["expert_counts"])
@@ -326,6 +308,21 @@ def forward_with_aux(cfg: ArchConfig, params: MoEParams,
     return logits, {"lb_loss": lb / n, "z_loss": zl / n,
                     "dropped": torch.stack(dropped).mean(),
                     "expert_counts": torch.stack(counts).sum(dim=0)}
+
+
+def loss(cfg: ArchConfig, params: MoEParams, batch: dict, *,
+         remat: bool = False) -> torch.Tensor:
+    """Token NLL plus the routers' auxiliary losses: ``nll + 0.01 lb +
+    router_zloss z``, as the reference."""
+    logits, aux = forward_with_aux(
+        cfg, params, batch["tokens"],
+        prefix_embeds=batch.get("prefix_embeds"), remat=remat)
+    nll = cross_entropy(logits, batch["labels"].to(logits.device),
+                        batch.get("mask"))
+    return nll + 0.01 * aux["lb_loss"] + cfg.moe.router_zloss * aux["z_loss"]
+
+
+loss_and_grad = loss_and_grad_of(loss)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,10 @@
 """Architecture registry: ``--arch <id>`` -> (config, model module).
 
-All ten configs are here; of the model families ``dense`` and ``vlm``
-(the transformer backbone), ``ssm`` (rwkv6) and ``moe`` are ported.
-Asking for another family raises."""
+All ten configs and all six model families: ``dense`` and ``vlm`` (the
+transformer backbone), ``moe``, ``ssm`` (rwkv6), ``hybrid`` (RG-LRU +
+local attention) and ``audio`` (whisper's encoder-decoder).  Every model
+module exposes ``init(cfg, seed, device=)``, ``forward``, ``loss``,
+``loss_and_grad``, ``init_cache`` and ``decode_step``."""
 from __future__ import annotations
 
 import dataclasses
@@ -27,8 +29,10 @@ _CONFIG_MODULES = {
 _FAMILY_MODULES = {
     "dense": "repro_torch.models.transformer",
     "vlm": "repro_torch.models.transformer",  # backbone
-    "ssm": "repro_torch.models.rwkv",
     "moe": "repro_torch.models.moe",
+    "ssm": "repro_torch.models.rwkv",
+    "hybrid": "repro_torch.models.rglru",
+    "audio": "repro_torch.models.whisper",
 }
 
 ARCH_IDS = tuple(_CONFIG_MODULES)
@@ -57,8 +61,8 @@ def get_config(arch_id: str) -> ArchConfig:
 
 def get(arch_id: str) -> Arch:
     cfg = get_config(arch_id)
-    if cfg.family not in _FAMILY_MODULES:
-        raise NotImplementedError(
-            f"{arch_id}: the {cfg.family!r} family is not ported yet "
-            f"(ported: {sorted(_FAMILY_MODULES)})")
     return Arch(cfg, importlib.import_module(_FAMILY_MODULES[cfg.family]))
+
+
+def all_archs() -> dict[str, Arch]:
+    return {a: get(a) for a in ARCH_IDS}

@@ -19,19 +19,27 @@ Serving: ``forward(..., return_states=True, last_only=True)`` is the
 prefill; ``decode_step`` then advances the recurrent state one token at a
 time.  The state is O(1) in the sequence length.  ``decode_step`` updates
 the cache's tensors in place (the reference returns new ones); the
-returned cache shares them.  ``loss`` comes with the training slice.
+returned cache shares them.
+
+Training: ``loss`` differentiates through the kernel's autograd wrapper,
+whose backward recomputes the plain recurrence; the forward then writes
+no state in place.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, Optional, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.wkv6 import ops as wkv_ops
-from repro_torch.models.common import dtype_of, embed_init, he, layer_norm
+from repro_torch.models.common import (cross_entropy, dtype_of, embed_init,
+                                       he, layer_norm, loss_and_grad_of,
+                                       records_grad)
 from repro_torch.models.transformer import DenseParams
 
 LORA_RANK = 64
@@ -198,35 +206,56 @@ def _embed(params: RwkvParams, tokens: torch.Tensor) -> torch.Tensor:
 
 def forward(cfg: ArchConfig, params: RwkvParams, tokens: torch.Tensor, *,
             states=None, return_states: bool = False,
-            last_only: bool = False, wkv: Optional[Wkv] = None):
+            last_only: bool = False, remat: bool = False,
+            wkv: Optional[Wkv] = None):
     """Logits (B,T,V) — (B,1,V) with ``last_only`` — over ``tokens``
     (B,T), from ``states`` (zero when None, left unchanged).  With
     ``return_states`` also the new (tm, cm, wkv) states: the token shifts
-    in the activation dtype, the WKV state in fp32."""
+    in the activation dtype, the WKV state in fp32.  ``remat`` recomputes
+    each layer in the backward pass.  While autograd records, no state is
+    written in place: the new states are stacked from each layer's."""
     B, T = tokens.shape
     x = _embed(params, tokens)
     if states is None:
         states = init_states(cfg, B, device=x.device)
     H, hd = _heads(cfg)
     L, D = params.n_layers, cfg.d_model
-    tm_out = torch.empty((L, B, D), dtype=x.dtype, device=x.device)
-    cm_out = torch.empty((L, B, D), dtype=x.dtype, device=x.device)
-    wkv_out = torch.empty((L, B, H, hd, hd), dtype=torch.float32,
-                          device=x.device)
-    for i in range(L):
-        x, (tm_s, cm_s, _) = _layer_fwd(
-            cfg, x, params.layer(i),
-            (states[0][i], states[1][i], states[2][i]), wkv=wkv,
-            state_out=wkv_out[i])
-        tm_out[i] = tm_s
-        cm_out[i] = cm_s
+    grad = records_grad(params)
+    body = partial(_layer_fwd, cfg, wkv=wkv)
+    if remat and grad:
+        body = partial(checkpoint, body, use_reentrant=False)
+    wkv_out = None
+    if return_states and not grad:
+        wkv_out = torch.empty((L, B, H, hd, hd), dtype=torch.float32,
+                              device=x.device)
+    new_states = []
+    for i, lp in enumerate(params.layer_trees()):
+        x, s = body(x, lp, (states[0][i], states[1][i], states[2][i]),
+                    state_out=None if wkv_out is None else wkv_out[i])
+        new_states.append(s)
     if last_only:
         x = x[:, -1:]
     x = layer_norm(x, params.final_norm["scale"], params.final_norm["bias"])
     logits = x @ params.lm_head
     if return_states:
-        return logits, (tm_out, cm_out, wkv_out)
+        tm_s, cm_s, wkv_s = zip(*new_states)
+        return logits, (torch.stack(tm_s), torch.stack(cm_s),
+                        torch.stack(wkv_s) if wkv_out is None else wkv_out)
     return logits
+
+
+def loss(cfg: ArchConfig, params: RwkvParams, batch: dict, *,
+         remat: bool = False, wkv: Optional[Wkv] = None) -> torch.Tensor:
+    """Mean token NLL of ``batch`` (``tokens``, ``labels``, optional
+    ``mask``).  On the card the forward launches the ``wkv6`` kernel and
+    its backward recomputes the plain recurrence
+    (:class:`repro_torch.kernels.wkv6.ops.Wkv6Fn`)."""
+    logits = forward(cfg, params, batch["tokens"], remat=remat, wkv=wkv)
+    return cross_entropy(logits, batch["labels"].to(logits.device),
+                         batch.get("mask"))
+
+
+loss_and_grad = loss_and_grad_of(loss)
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,9 @@ reference's ``vmap``-ed init stacks them.
 dense layers run through ``_layer_fwd`` and the same decode layers.
 ``decode_step`` writes each layer's new K/V row into the cache in place
 (the reference returns new arrays); the returned cache shares the
-tensors.  ``loss`` comes with the training slice; the tiered serving path
-decodes through :func:`repro_torch.serving.kv_cache.tiered_decode_step`."""
+tensors.  ``loss_and_grad`` is ``common.loss_and_grad_of(loss)``; the
+tiered serving path decodes through
+:func:`repro_torch.serving.kv_cache.tiered_decode_step`."""
 from __future__ import annotations
 
 from functools import partial
@@ -26,10 +27,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (apply_norm, dtype_of, embed_init,
-                                       cross_entropy, mlp_apply, mlp_params,
-                                       norm_params)
-from repro_torch.tree import named_leaves
+from repro_torch.models.common import (ParamTree, apply_norm, dtype_of,
+                                       embed_init, cross_entropy,
+                                       loss_and_grad_of, mlp_apply,
+                                       mlp_params, norm_params)
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -47,37 +48,23 @@ class DenseParams(nn.Module):
                  lm_head: Optional[torch.Tensor] = None):
         super().__init__()
         self.embed = _frozen(embed)
-        self.layers = nn.ModuleDict({k: _group(v) for k, v in layers.items()})
+        self.layers = ParamTree(layers)
         self.final_norm = _group(final_norm)
         self.lm_head = None if lm_head is None else _frozen(lm_head)
 
     @property
     def n_layers(self) -> int:
-        return self.layers["ln1"]["scale"].shape[0]
+        return self.layers.n_entries
 
     def layer(self, i: int) -> dict:
-        """Layer ``i``'s parameters as a dict tree of views (cached: the
-        decode step reads every layer every step)."""
-        views = self.__dict__.get("_layer_views")
-        if views is None:
-            with torch.no_grad():
-                views = [{g: {k: p[j] for k, p in grp.items()}
-                          for g, grp in self.layers.items()}
-                         for j in range(self.n_layers)]
-            self.__dict__["_layer_views"] = views
-        return views[i]
+        """Layer ``i``'s parameters as a dict tree of views
+        (:meth:`ParamTree.entries`)."""
+        return self.layers.entries()[i]
 
     def layer_trees(self) -> list[dict]:
-        """Every layer's tree: the cached views, or, while autograd records
-        through the parameters, fresh ``unbind`` views of the stacked
-        leaves (one backward node a leaf, its gradient one ``[L, ...]``
-        tensor)."""
-        if not (torch.is_grad_enabled() and self.embed.requires_grad):
-            return [self.layer(i) for i in range(self.n_layers)]
-        split = {g: {k: torch.unbind(p) for k, p in grp.items()}
-                 for g, grp in self.layers.items()}
-        return [{g: {k: v[i] for k, v in grp.items()}
-                 for g, grp in split.items()} for i in range(self.n_layers)]
+        """Every layer's tree (:meth:`ParamTree.entries`: cached views, or
+        fresh ``unbind`` views while autograd records)."""
+        return self.layers.entries()
 
 
 def generator(seed: Union[int, torch.Generator], device: torch.device
@@ -231,22 +218,7 @@ def loss(cfg: ArchConfig, params: DenseParams, batch: dict, *,
                          batch.get("mask"))
 
 
-def loss_and_grad(cfg: ArchConfig, params: DenseParams, batch: dict, *,
-                  remat: bool = False) -> tuple[torch.Tensor, dict]:
-    """(loss, {leaf name: gradient}) — ``jax.value_and_grad`` of
-    :func:`loss`; each parameter's ``requires_grad`` is restored after."""
-    names, leaves = zip(*named_leaves(params))
-    flags = [p.requires_grad for p in leaves]
-    try:
-        for p in leaves:
-            p.requires_grad_(True)
-        with torch.enable_grad():
-            value = loss(cfg, params, batch, remat=remat)
-            grads = torch.autograd.grad(value, leaves)
-    finally:
-        for p, flag in zip(leaves, flags):
-            p.requires_grad_(flag)
-    return value.detach(), dict(zip(names, grads))
+loss_and_grad = loss_and_grad_of(loss)
 
 
 # ---------------------------------------------------------------------------

@@ -47,20 +47,21 @@ def test_config_equal_field_by_field(arch):
 
 
 def test_registry_ports_dense_and_vlm_only():
-    """dense and vlm go to the transformer, ssm (rwkv6) and moe to their
-    own modules; the other families are not ported yet."""
+    """Every family goes to its module, as in the reference: dense and
+    vlm to the transformer, ssm (rwkv6), moe, hybrid (RG-LRU) and audio
+    (whisper) to their own (the name is older than slices 10 and 12)."""
     assert t_registry.ARCH_IDS == r_registry.ARCH_IDS
     ported = {"dense": "repro_torch.models.transformer",
               "vlm": "repro_torch.models.transformer",
               "ssm": "repro_torch.models.rwkv",
-              "moe": "repro_torch.models.moe"}
+              "moe": "repro_torch.models.moe",
+              "hybrid": "repro_torch.models.rglru",
+              "audio": "repro_torch.models.whisper"}
     for arch in ARCHS:
         cfg = t_registry.get_config(arch)
-        if cfg.family in ported:
-            assert t_registry.get(arch).module.__name__ == ported[cfg.family]
-        else:
-            with pytest.raises(NotImplementedError, match="not ported"):
-                t_registry.get(arch)
+        assert t_registry.get(arch).module.__name__ == ported[cfg.family]
+        assert r_registry.get(arch).module.__name__ == \
+            ported[cfg.family].replace("repro_torch", "repro")
     with pytest.raises(KeyError):
         t_registry.get("gpt-5")
 

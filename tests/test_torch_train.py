@@ -1,17 +1,20 @@
 """Differential tests for the port's training slice: ``cross_entropy``,
-``transformer.loss`` and its gradients, the LR schedules, AdamW,
-``TieredAdamW`` (step, quantized moments, placement, repartition, the
-mover's descriptors), the token pipeline, the checkpointer, gradient
-compression, the straggler mitigator and the training driver, each
+``transformer.loss`` and its gradients, the ``wkv6`` autograd Function,
+the LR schedules, AdamW, ``TieredAdamW`` (step, quantized moments,
+placement, repartition, the mover's descriptors), the token pipeline,
+the checkpointer, gradient compression, the straggler mitigator, the
+training driver for every family and ``examples/train_tiny_lm``, each
 against ``repro`` on the same inputs (weights carried across by
 ``params_from_jax``).
 
 Tolerances: losses rtol 1e-5 and gradients atol 1e-5 (fp32 tiny models);
 schedules rtol 1e-6; AdamW atol 1e-6 (``tests/test_substrates.py``);
 three fused-against-tiered steps atol 5e-5 (``tests/test_system.py``);
-the driver's losses 1e-4.  Billed bytes, descriptor and batch counts,
-page-map choices, Caption decisions, pipeline batches, int8 moments and
-checkpoint bits match exactly.  The ``cuda`` tests need a card."""
+the training driver's losses 1e-4; the ``wkv6`` autograd Function's
+gradients 1e-6 of the plain loop's on the CPU, 1e-4 on the card.  Billed
+bytes, descriptor and batch counts, page-map choices, Caption decisions,
+pipeline batches, int8 moments and checkpoint bits match exactly.  The
+``cuda`` tests need a card."""
 import contextlib
 import io
 import zlib
@@ -607,6 +610,22 @@ def _run(main, argv, **kw):
     return losses, out.getvalue()
 
 
+def _record_init(monkeypatch, module) -> list:
+    """The trees the reference's ``module.init`` makes while the test
+    runs, kept as numpy copies (``module.init`` is patched in the test
+    only): the port starts from the weights the reference driver drew,
+    without a second draw of them."""
+    made = []
+    init = module.init
+
+    def record(*args, **kw):
+        tree = init(*args, **kw)
+        made.append(jax.tree_util.tree_map(np.array, tree))
+        return tree
+    monkeypatch.setattr(module, "init", record)
+    return made
+
+
 @pytest.mark.parametrize("arch_id", ["starcoder2-3b", "internvl2-2b"])
 def test_train_driver_matches_reference(arch_id, tmp_path):
     """``train.main`` on the CPU from the reference's weights: losses
@@ -652,12 +671,100 @@ def test_train_driver_defaults_to_the_card(monkeypatch):
     assert seen["device"] == "cuda" and seen["devices"] == "h100"
 
 
-@pytest.mark.parametrize("arch_id", ["rwkv6-7b", "deepseek-moe-16b",
-                                     "recurrentgemma-9b", "whisper-large-v3"])
-def test_train_driver_refuses_unported_losses(arch_id):
-    with pytest.raises(SystemExit, match="loss is not ported"):
-        t_train.main(["--arch", arch_id, "--tiny", "--device", "cpu",
-                      "--steps", "1"])
+NEW_FAMILIES = ["rwkv6-7b", "deepseek-moe-16b", "recurrentgemma-9b",
+                "whisper-large-v3"]
+
+
+@pytest.mark.parametrize("arch_id", NEW_FAMILIES)
+def test_train_driver_matches_reference_for_each_family(arch_id, tmp_path,
+                                                        monkeypatch):
+    """``train.main`` on the CPU from the reference's weights, tiered
+    under Caption, for the families the dense slice left out: losses
+    within 1e-4, the same Caption decisions, and the tiered optimizer's
+    placement the reference's through ``tree.ref_key``."""
+    tiny = t_registry.get(arch_id).tiny().cfg
+    rarch = r_registry.get(arch_id).tiny()
+    made = _record_init(monkeypatch, rarch.module)
+    argv = ["--arch", arch_id, "--tiny", "--steps", "8", "--batch", "2",
+            "--seq", "16", "--ckpt-every", "100", "--log-every", "4",
+            "--ckpt-dir", str(tmp_path), "--offload-fraction", "0.5",
+            "--caption", "--caption-epoch-steps", "4",
+            "--devices", "tpu-v5e"]
+    want, r_out = _run(r_train.main, argv)
+    tree = made[0]
+    params = params_from_jax(tiny, tree, device="cpu")
+    got, t_out = _run(t_train.main, argv + ["--device", "cpu"],
+                      params=params_from_jax(tiny, tree, device="cpu"))
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    decisions = [[ln for ln in text.splitlines() if "caption" in ln]
+                 for text in (r_out, t_out)]
+    assert decisions[0] == decisions[1] and decisions[1], t_out
+    ro, to, _, _ = _tiered_pair(0.5, False, min_offload_bytes=1024)
+    rp = jax.tree_util.tree_map(jnp.asarray, tree)
+    r_picked = [str(p) for p in ro.choose_offloaded(rp)]
+    assert [ref_key(k) for k in to.choose_offloaded(params)] == r_picked
+    assert r_picked
+
+
+def test_wkv6_autograd_matches_the_plain_loop():
+    """The wrapper's autograd Function (its forward the plain version on
+    the CPU, its backward the recomputed plain recurrence) against
+    autograd through the plain loop itself: y, the final state and every
+    input's gradient."""
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.kernels.wkv6 import ref as wkv_ref
+    g = torch.Generator().manual_seed(0)
+    B, T, H, hd = 2, 9, 2, 8
+    shapes = [(B, T, H, hd)] * 3 + [(B, T, H, hd), (H, hd), (B, H, hd, hd)]
+    base = [torch.randn(s, generator=g) for s in shapes]
+    base[3] = torch.sigmoid(base[3])  # decays in (0, 1)
+    gy = torch.randn((B, T, H, hd), generator=g)
+    gs = torch.randn((B, H, hd, hd), generator=g)
+    out = []
+    for fn in (wkv_ops.wkv6, wkv_ref.wkv6):
+        xs = [t.clone().requires_grad_(True) for t in base]
+        y, s = fn(*xs)
+        assert y.grad_fn is not None
+        grads = torch.autograd.grad((y * gy).sum() + (s * gs).sum(), xs)
+        out.append((y.detach(), s.detach(), grads))
+    (y1, s1, g1), (y2, s2, g2) = out
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+    for a, b in zip(g1, g2):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6)
+    with pytest.raises(ValueError, match="state_out"):
+        xs = [t.clone().requires_grad_(True) for t in base]
+        wkv_ops.wkv6(*xs, state_out=torch.empty_like(base[5]))
+
+
+def test_train_tiny_lm_example_matches_reference(tmp_path, monkeypatch):
+    """``repro_torch.examples.train_tiny_lm`` at 2 steps against the
+    reference driver on the same ~100M config and weights.  The
+    reference example patches ``registry.get``, which its driver bound at
+    import, so here ``repro.launch.train.get_arch`` is patched, in the test
+    only."""
+    import dataclasses
+    from repro_torch.examples import train_tiny_lm
+    cfg = train_tiny_lm.config()
+    rarch = r_registry.get("starcoder2-3b")
+    rcfg = dataclasses.replace(
+        rarch.cfg.tiny(), name="starcoder2-100m", n_layers=6, d_model=512,
+        n_heads=8, n_kv_heads=2, d_ff=2048, vocab=32768, head_dim=64,
+        max_seq=512)
+    monkeypatch.setattr(r_train, "get_arch", lambda a: dataclasses.replace(
+        rarch, cfg=rcfg))
+    made = _record_init(monkeypatch, rarch.module)
+    want, _ = _run(r_train.main, [
+        "--arch", "starcoder2-100m", "--steps", "2", "--batch", "4",
+        "--seq", "256", "--lr", "6e-4", "--ckpt-dir", str(tmp_path / "r"),
+        "--ckpt-every", "100", "--offload-fraction", "0.0",
+        "--log-every", "20"])
+    tree = made[0]
+    got, out = _run(train_tiny_lm.main, [
+        "--steps", "2", "--device", "cpu", "--ckpt-dir", str(tmp_path / "t")],
+        params=params_from_jax(cfg, tree, device="cpu"))
+    assert "params=" in out and len(got) == 2
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    assert got[-1] < got[0]
 
 
 # -- on the card --------------------------------------------------------------
@@ -699,6 +806,30 @@ def test_tiered_step_launches_on_the_card(cuda, quantized):
         np.testing.assert_allclose(pg[k].numpy(), pc[k].numpy(), atol=1e-6)
     for k in bc:
         assert bc[k].numel() == bg[k].numel()
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_path_gradients_match_the_plain_path(cuda):
+    """On the card, rwkv's ``loss_and_grad`` through the ``wkv6`` kernel
+    (one launch a layer in the forward) against the same call with
+    ``wkv=`` the plain recurrence: every leaf within 1e-4 (fp32)."""
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.kernels.wkv6 import ref as wkv_ref
+    arch = t_registry.get("rwkv6-7b").tiny()
+    params = arch.module.init(arch.cfg, 0, device=cuda)
+    data = TokenPipeline(DataConfig(vocab=arch.cfg.vocab_padded, batch=2,
+                                    seq=32, seed=11))
+    batch = {k: _t(v).to(cuda) for k, v in data.batch_at(0).items()}
+    wkv_ops.LAUNCHES.reset()
+    loss, grads = arch.module.loss_and_grad(arch.cfg, params, batch)
+    assert wkv_ops.LAUNCHES.reset() == arch.cfg.n_layers
+    want_loss, want = arch.module.loss_and_grad(arch.cfg, params, batch,
+                                                wkv=wkv_ref.wkv6)
+    assert wkv_ops.LAUNCHES.count == 0
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-5)
+    for k, g in grads.items():
+        np.testing.assert_allclose(g.cpu().numpy(), want[k].cpu().numpy(),
+                                   atol=1e-4, err_msg=k)
 
 
 @pytest.mark.cuda

@@ -72,6 +72,7 @@ def actuation(epochs: int, profile: bool = True) -> None:
     for name, epoch in epochs_of.items():
         if profile:
             profile_steps(epoch, f"gate/actuation/{name}", n=8)
+    split_donated_epoch(n_pages, idxs, vals, device, epochs)
     times = {name: [] for name in epochs_of}
     for rep in range(3):
         for name in (("cow", "donated") if rep % 2 == 0
@@ -88,6 +89,38 @@ def actuation(epochs: int, profile: bool = True) -> None:
     log(f"gate/actuation/speedup,"
         + ",".join(f"{c / d:.3f}" for c, d in zip(times["cow"],
                                                   times["donated"])))
+
+
+def split_donated_epoch(n_pages, idxs, vals, device, epochs: int) -> None:
+    """A donated epoch's time split between its ``repartition_fraction``
+    and its four ``update_rows``: the host clock around each part, the
+    card synchronised after each, medians over ``epochs`` epochs."""
+    import numpy as np
+    import torch
+    from chip_smoke import log
+    from repro_torch.benchmarks import bench_hotpaths as bh
+    from repro_torch.core.telemetry import Telemetry
+    it = bh._make(n_pages, device, headroom=max(16, n_pages // 16))[0]
+    rep, upd = [], []
+    for e in range(epochs + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        it = it.repartition_fraction((0.35, 0.3)[e % 2],
+                                     telemetry=Telemetry(), donate=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for ix, v in zip(idxs, vals):
+            it = it.update_rows(ix, v, donate=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if e >= 2:
+            rep.append((t1 - t0) * 1e3)
+            upd.append((t2 - t1) * 1e3)
+    log(f"gate/actuation/donated_split,epochs={epochs},"
+        f"repartition_ms_median={np.median(rep):.4f},"
+        f"update_rows_x4_ms_median={np.median(upd):.4f},"
+        f"repartition_ms_min={min(rep):.4f},update_rows_x4_ms_min="
+        f"{min(upd):.4f}")
 
 
 def serving(runs: int, profile: bool = True) -> None:
