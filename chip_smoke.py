@@ -105,8 +105,11 @@ wrong result or a missing kernel launch:
    gates), ``bench_serving`` (smoke: tokens equal across the four
    modes, ``decode_attention`` every decode step), ``bench_hotness``
    (smoke: its five sections over an HBM and three pinned shards) and
-   the ``dlrm_embedding`` example; fig8's semantic section runs with
-   fig8.  Prints every row,
+   the ``dlrm_embedding`` example, and ``fig_elastic`` (full: the
+   controller timeline, then internvl2-2b ``.tiny()`` losing ``cxl-c``
+   mid-decode, its drain through ``stream_copy``, the tokens equal to a
+   run with no kill); fig8's semantic section runs with fig8.  Prints
+   every row,
    each script's seconds and launches, and the phase's launches by
    kernel.
 10. MEMO: each ``memo_probe`` entry point against its plain version on
@@ -182,6 +185,28 @@ wrong result or a missing kernel launch:
    layer in the forward, the recomputing backward's ms; the tiny driver
    on the card against the CPU for the four families; and
    ``examples/train_tiny_lm`` at its defaults (the loss falls).
+15. the elastic runtime: (a) internvl2-2b at full size, bf16, random
+   weights, a ``ServingEngine`` of 8 slots x 4096 positions in pages of
+   64 over HBM and three pinned pools, each its own device
+   (``host-a/b/c``, policy (5, 1, 1, 1)), Caption + arbiter + a
+   ``BulkMover`` on ``stream_copy``; 8 requests of 2048-token prompts
+   (their K/V from the full-sequence forward), 64 new tokens each, slot 0
+   at the latency SLO.  A ``HeartbeatMonitor`` and a ``FaultInjector``
+   beat every step; ``host-c`` dies after step 16 and is drained through
+   ``remove_device(monitor=)``: billed bytes equal to its pages x the
+   page's KV bytes, no page left on it, slot 0 all in HBM, ``stream_copy``
+   launches (from 0 around the drain) within one a route-pure batch of
+   16 descriptors plus one landing, the next step against plain attention,
+   every slot's prompt rows read back bit-equal; then revive, re-add and
+   one more request.  ``decode_attention`` launches equal one a layer and
+   pool every step; tokens equal a run with no kill up to a request's
+   first difference, which must be a token whose top-2 gap is within 4x
+   the measured logit error.  (b) starcoder2-3b at full width, 2 layers,
+   fused AdamW, batch 8 x 128: two uninterrupted stretches agree to the
+   bit, then three ``ResilientLoop`` runs of 6 steps from one state
+   (uninterrupted; a worker killed at step 3 with checkpoints every 2; a
+   failure at step 1 before any checkpoint) end in states and losses
+   equal to the bit; checkpoint save and restore seconds and GB/s.
 ``--full-gates`` then runs ``bench_hotpaths`` (4096 pages, the
 repartition timed the reference's one-pass way) and ``bench_serving``
 at full size, with their gates.
@@ -1389,14 +1414,14 @@ def check_run_slabs(cache) -> None:
     from repro_torch.kernels.stream_copy import ops, ref
     dev = cache.k_parts[0].device
     for d, out_mem in ((0, {"pin_memory": True}), (1, {"device": dev})):
-        slab = cache._run_slab(cache.k_parts, d, 3, 0, 8)
+        slab = cache.k_parts[d][:, 3, :8 * cache.page_t].flatten(1)
         out = torch.empty(slab.shape, dtype=slab.dtype, **out_mem)
         ops.stream_copy(slab, out=out, device=dev)
         want = ref.stream_copy(slab)
         torch.cuda.synchronize()
         assert torch.equal(out.cpu().view(torch.int16),
                            want.cpu().view(torch.int16)), d
-    slab = cache._run_slab(cache.k_parts, 0, 3, 0, 8)
+    slab = cache.k_parts[0][:, 3, :8 * cache.page_t].flatten(1)
     out = torch.empty(slab.shape, dtype=slab.dtype, pin_memory=True)
     ms = time_ms(lambda: ops.stream_copy(slab, out=out, device=dev),
                  queue_ahead=True)
@@ -2208,7 +2233,7 @@ def phase_figures() -> dict:
                                         bench_serving, fig2_latency,
                                         fig3_seq_bw, fig4_dsa, fig5_random,
                                         fig6_redis, fig8_dlrm, fig10_dsb,
-                                        fig11_caption)
+                                        fig11_caption, fig_elastic)
     from repro_torch.examples import (dlrm_embedding, quickstart,
                                       serve_tiered_kv)
     gc.collect()
@@ -2238,6 +2263,7 @@ def phase_figures() -> dict:
         ("hotness", lambda: bench_hotness.run(smoke=True)[0]),
         ("dlrm_embedding", lambda: example("dlrm_embedding",
                                            dlrm_embedding.main)),
+        ("elastic", fig_elastic.run),
     )
     counters = launch_counts()
     for c in counters.values():
@@ -2271,9 +2297,11 @@ def phase_figures() -> dict:
         assert per_figure[name].get("memo_probe", 0) > 0, (name, per_figure)
     for name in ("fig3", "fig4"):
         assert per_figure[name].get("stream_copy", 0) > 0, (name, per_figure)
-    for name in ("fig6", "serve_tiered_kv"):
+    for name in ("fig6", "serve_tiered_kv", "elastic"):
         assert per_figure[name].get("decode_attention", 0) > 0, (
             name, per_figure)
+    # the drain and the SLO pin move pages through the mover's kernel
+    assert per_figure["elastic"].get("stream_copy", 0) > 0, per_figure
     assert per_figure["quickstart"].get("embedding_reduce") == 1, per_figure
     # fig8: the measured row's warm and timed launches, and the semantic
     # section's two bag_reduce calls over an HBM and three pinned shards
@@ -3622,6 +3650,507 @@ def phase_families(stats: dict, profile: bool = False) -> dict:
     return out
 
 
+#: phase 15 (a): internvl2-2b at full size, 8 slots of 4096 positions in
+#: pages of 64, prompts of 2048 tokens, 64 new tokens, ``host-c`` killed
+#: after decode step 16 (the monitor's timeout is 1.5 steps)
+EL_B, EL_T, EL_PAGE, EL_PROMPT, EL_NEW, EL_KILL = 8, 4096, 64, 2048, 64, 16
+EL_HOSTS = ("host-a", "host-b", "host-c")
+#: phase 15 (b): starcoder2-3b at full width, 2 layers, 6 steps; F fails at
+#: step 3 (checkpoints every 2), S at step 1 (before any checkpoint)
+RES_LAYERS, RES_STEPS, RES_EVERY, RES_FAIL_F, RES_FAIL_S = 2, 6, 2, 3, 1
+
+
+def elastic_topology_h100():
+    """HBM and three page-locked host pools, each its own device (they
+    share one PCIe link, which the modeled rates do not know)."""
+    import dataclasses
+    from repro_torch.core import H100_HBM, H100_HOST_PINNED, TierTopology
+    return TierTopology(fast=H100_HBM, slows=tuple(
+        dataclasses.replace(H100_HOST_PINNED, name=n) for n in EL_HOSTS))
+
+
+def prefill_kv(cfg, params, tokens):
+    """Each layer's rotated K and V of ``tokens`` (B, S): two (L, B, S, K,
+    hd) tensors, from the full-sequence forward."""
+    import torch
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer
+    from repro_torch.models.common import apply_norm, apply_rope
+    ks, vs = [], []
+    with torch.no_grad():
+        x, positions = transformer.embed_tokens(params, tokens)
+        for lp in params.layer_trees():
+            h = apply_norm(x, lp["ln1"], cfg.norm)
+            _, k, v = attn._project_qkv(h, lp["attn"], cfg.n_heads,
+                                        cfg.n_kv_heads, cfg.resolved_head_dim)
+            ks.append(apply_rope(k, positions, cfg.rope_theta, cfg.rope_pct)
+                      if cfg.rope else k)
+            vs.append(v)
+            x = transformer._layer_fwd(cfg, x, lp, positions)
+    return torch.stack(ks), torch.stack(vs)
+
+
+def elastic_engine(cfg, params, topo, dev):
+    """The serving engine of phase 15 (a): Caption seeded at the policy's
+    weights, the arbiter, a synchronous mover on ``stream_copy``."""
+    from repro_torch.core import (BulkMover, CaptionArbiter, CaptionConfig,
+                                  CaptionController, MemPolicy,
+                                  stream_executor)
+    from repro_torch.core.telemetry import Telemetry
+    from repro_torch.serving.engine import ServingEngine
+    names = (topo.fast.name,) + topo.slow_names
+    caption = CaptionController(topo, CaptionConfig(epoch_steps=8),
+                                initial_weights=(1 / 8,) * 3)
+    tel = Telemetry()
+    mover = BulkMover(topo, asynchronous=False, execute=stream_executor(),
+                      telemetry=tel, device=dev)
+    eng = ServingEngine(cfg, params, max_batch=EL_B, max_len=EL_T,
+                        page_t=EL_PAGE, topology=topo,
+                        policy=MemPolicy.weighted(names, (5, 1, 1, 1)),
+                        caption=caption, arbiter=CaptionArbiter(topo),
+                        mover=mover, telemetry=tel, device=dev)
+    return eng, mover, tel
+
+
+def elastic_serve(cfg, params, prompts, kv, dev, kill: bool,
+                  audit: dict) -> dict:
+    """One run of phase 15 (a): the prompts' K/V written into their slots,
+    decode to the end with heartbeats every step; with ``kill``, host-c
+    dies after step EL_KILL, is drained through ``remove_device(monitor=)``
+    as ``fig_elastic`` does it, then revived, re-added and given one more
+    request.  Returns each request's tokens, every step's top-2 logit
+    gaps, the tokens/s of each stretch and the ``decode_attention``
+    launches."""
+    import torch
+    from repro_torch.benchmarks.common import launch_bound
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.stream_copy import ops as sc_ops
+    from repro_torch.runtime.elastic import FaultInjector
+    from repro_torch.runtime.fault_tolerance import (HeartbeatMonitor,
+                                                     WorkerFailure)
+    topo = elastic_topology_h100()
+    eng, mover, tel = elastic_engine(cfg, params, topo, dev)
+    names = (topo.fast.name,) + topo.slow_names
+    L, K, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    gaps = []  # every step's top-2 logit gap a slot, on the host
+    want_da = [0]
+
+    inner = eng._decode
+
+    def decode(p, cache, tokens):
+        want_da[0] += L * sum(1 for t in cache.k_parts if t.shape[2])
+        logits, cache = inner(p, cache, tokens)
+        top2 = torch.topk(logits.float(), 2, dim=-1).values
+        gaps.append((top2[:, 0] - top2[:, 1]).cpu())
+        return logits, cache
+    eng._decode = decode
+    try:
+        for i in range(EL_B):
+            # the prompt's last token is the request; its first 2047 are
+            # already in the slot (a prefill outside the engine's replay)
+            eng.submit([int(prompts[i, -1])], max_new_tokens=EL_NEW,
+                       slo="latency" if i == 0 else "batch")
+        eng._admit()
+        assert eng.pinned_slots == {0}, eng.pinned_slots
+        for i in range(EL_B):
+            eng.cache = eng.cache.write_token_rows(i, 0, kv[0][:, i],
+                                                   kv[1][:, i])
+        torch.cuda.synchronize()
+        mon = HeartbeatMonitor(timeout=1.5)
+        da_ops.LAUNCHES.reset()
+        times = {"pre_kill": [], "undetected": [], "post_drain": [],
+                 "post_readd": []}
+        with FaultInjector(mon) as inj:
+            steps, seg = 0, "pre_kill"
+            while eng.queue or any(eng.slots):
+                steps += 1
+                now = float(steps)
+                active = sum(r is not None for r in eng.slots)
+                if kill and steps == 4:
+                    audit["busy_share"] = device_busy_share(eng.step)
+                    times["pre_kill"].clear()  # steps 1-3 warm the run up
+                else:
+                    t0 = time.perf_counter()
+                    eng.step()
+                    times[seg].append((active, time.perf_counter() - t0))
+                inj.beat_alive(topo.slow_names, now=now)
+                if kill and steps == EL_KILL:
+                    inj.kill("host-c")
+                    seg = "undetected"
+                try:
+                    mon.check(now=now)
+                except WorkerFailure:
+                    (name,) = mon.dead_workers(now=now)
+                    dev_map = eng.cache.page_device.cpu().numpy()
+                    assert (dev_map[0] == 0).all(), "slot 0 left HBM"
+                    dead = int((dev_map == 3).sum())
+                    pre = {d: (tel.route(name, d).bytes_moved,
+                               tel.route(name, d).descriptors)
+                           for d in names}
+                    torch.cuda.synchronize()
+                    sc_ops.LAUNCHES.reset()
+                    t0 = time.perf_counter()
+                    eng.remove_device(name, monitor=mon)
+                    torch.cuda.synchronize()
+                    drain_s = time.perf_counter() - t0
+                    launches = sc_ops.LAUNCHES.reset()
+                    billed = sum(tel.route(name, d).bytes_moved - pre[d][0]
+                                 for d in names)
+                    descs = [tel.route(name, d).descriptors - pre[d][1]
+                             for d in names]
+                    page_b = eng.cache._page_kv_bytes()
+                    dev_map = eng.cache.page_device.cpu().numpy()
+                    assert dead > 0, "host-c held no page at the kill"
+                    assert billed == dead * page_b, (billed, dead, page_b)
+                    assert not (dev_map == 3).any(), "pages left on host-c"
+                    assert (dev_map[0] == 0).all(), "slot 0 left HBM"
+                    assert 0 < launches <= launch_bound(descs), (
+                        launches, descs)
+                    mon.check(now=now)  # recovery acknowledged
+                    audit.update(
+                        device=name, detected_at_step=steps,
+                        dead_pages=dead, page_kv_bytes=page_b,
+                        drain_bytes=billed, drain_s=drain_s,
+                        drain_descriptors=descs,
+                        drain_stream_copy_launches=launches,
+                        drain_launch_bound=launch_bound(descs),
+                        weights_after=dict(zip(
+                            eng.caption.topology.slow_names,
+                            (round(w, 6) for w in eng.caption.weights))))
+                    # after the drain: the kernels against plain attention
+                    # on the next step, and every slot's prompt rows read
+                    # back through its page map
+                    check = uncounted(lambda: check_step_logits(eng, params))
+                    for i in range(EL_B):
+                        k_got, v_got = uncounted(
+                            lambda: eng.cache.gather_token_rows(
+                                i, 0, EL_PROMPT - 1))
+                        assert torch.equal(k_got, kv[0][:, i]) and \
+                            torch.equal(v_got, kv[1][:, i]), i
+                    audit["check"] = check
+                    seg = "post_drain"
+            if kill:
+                assert audit.get("device") == "host-c", audit
+                inj.revive("host-c")
+                eng.add_device("host-c")
+                assert eng.topology.slow_names == EL_HOSTS
+                eng.submit([int(prompts[0, -1])], max_new_tokens=EL_NEW)
+                seg = "post_readd"
+                while eng.queue or any(eng.slots):
+                    t0 = time.perf_counter()
+                    eng.step()
+                    times[seg].append((1, time.perf_counter() - t0))
+                mon.check(now=float(steps))
+        torch.cuda.synchronize()
+        da_launches = da_ops.LAUNCHES.count
+        assert da_launches == want_da[0], (da_launches, want_da[0])
+        done = {r.rid: list(r.generated) for r in eng.done}
+        assert len(done) == EL_B + int(kill), sorted(done)
+        assert all(len(t) == EL_NEW for t in done.values()), done
+        rates = {k: (sum(a for a, _ in v) / sum(s for _, s in v)
+                     if v else 0.0) for k, v in times.items()}
+        return {"tokens": done, "gaps": gaps, "rates": rates,
+                "decode_attention": da_launches,
+                "per_step": want_da[0] / len(gaps),
+                "slow_fraction": eng.cache.slow_fraction(eng.pinned_slots)}
+    finally:
+        mover.close()
+
+
+def elastic_tokens_agree(kill: dict, clean: dict, err: float) -> dict:
+    """Each request's tokens against the clean run's, up to its first
+    difference: that token must be one whose top-2 gap in the clean run
+    is at most 4x the measured logit error (past it the inputs differ)."""
+    compared = differed = 0
+    for rid in range(EL_B):
+        got, want = kill["tokens"][rid], clean["tokens"][rid]
+        for j, (a, b) in enumerate(zip(got, want)):
+            compared += 1
+            if a != b:
+                gap = float(clean["gaps"][j][rid])
+                assert gap <= 4 * err, (rid, j, gap, err)
+                differed += 1
+                break
+    return {"compared": compared, "first_differences": differed}
+
+
+def elastic_serving(stats: dict) -> dict:
+    """Phase 15 (a): internvl2-2b at full size losing a pinned device
+    mid-decode, against a run that loses nothing."""
+    import numpy as np
+    import torch
+    from repro_torch.models import registry
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    arch = registry.get("internvl2-2b")
+    cfg = arch.cfg
+    params = arch.module.init(cfg, torch.Generator(device=dev).manual_seed(25),
+                              device=dev)
+    n_params = sum(p.numel() for p in params.parameters())
+    rng = np.random.default_rng(25)
+    prompts = rng.integers(0, cfg.vocab, size=(EL_B, EL_PROMPT))
+    kv = prefill_kv(cfg, params, torch.as_tensor(prompts[:, :-1], device=dev))
+    torch.cuda.synchronize()
+    kv_bytes = (2 * cfg.n_layers * EL_B * EL_T * cfg.n_kv_heads
+                * cfg.resolved_head_dim * 2)
+    log(f"phase15/serving_model,arch={cfg.name},layers={cfg.n_layers},"
+        f"d_model={cfg.d_model},heads={cfg.n_heads}x"
+        f"{cfg.resolved_head_dim},kv_heads={cfg.n_kv_heads},vocab="
+        f"{cfg.vocab},params={n_params},param_bytes={2 * n_params},"
+        f"slots={EL_B},positions={EL_T},page_t={EL_PAGE},prompt={EL_PROMPT},"
+        f"new_tokens={EL_NEW},kv_cache_bytes={kv_bytes},"
+        f"setup_s={time.perf_counter() - t0:.2f}")
+    audit: dict = {}
+    t0 = time.perf_counter()
+    killed = elastic_serve(cfg, params, prompts, kv, dev, True, audit)
+    kill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    clean = elastic_serve(cfg, params, prompts, kv, dev, False, {})
+    clean_s = time.perf_counter() - t0
+    agree = elastic_tokens_agree(killed, clean, audit["check"]["err"])
+    gb = audit["drain_bytes"] / 1e9
+    check = audit["check"]
+    log(f"phase15/drain,device={audit['device']},detected_at_step="
+        f"{audit['detected_at_step']},dead_pages={audit['dead_pages']},"
+        f"page_kv_bytes={audit['page_kv_bytes']},drain_bytes="
+        f"{audit['drain_bytes']},bytes_equal_dead_pages_x_page=1,"
+        f"drain_ms={audit['drain_s'] * 1e3:.2f},drain_GBps="
+        f"{gb / audit['drain_s']:.3f},pcie_bound_ms="
+        f"{audit['drain_bytes'] / PCIE_BW * 1e3:.3f},descriptors_by_route="
+        f"{audit['drain_descriptors']},stream_copy_launches="
+        f"{audit['drain_stream_copy_launches']},launch_bound="
+        f"{audit['drain_launch_bound']},weights_after_reseed="
+        f"{audit['weights_after']}")
+    log(f"phase15/after_drain_check,logits_max_abs_err={check['err']:.4g},"
+        f"greedy_equal={check['greedy_equal']},greedy_compared="
+        f"{check['compared']},prompt_rows_read_back_bit_equal=1")
+    log(f"phase15/serving,requests_done={len(killed['tokens'])},dropped=0,"
+        f"tokens_per_s_pre_kill={killed['rates']['pre_kill']:.1f},"
+        f"tokens_per_s_post_drain={killed['rates']['post_drain']:.1f},"
+        f"tokens_per_s_post_readd={killed['rates']['post_readd']:.1f},"
+        f"tokens_per_s_clean={clean['rates']['pre_kill']:.1f},"
+        f"busy_share={audit['busy_share']},decode_attention_launches="
+        f"{killed['decode_attention']},per_step={killed['per_step']:.1f},"
+        f"clean_run_launches={clean['decode_attention']},"
+        f"tokens_compared={agree['compared']},first_differences="
+        f"{agree['first_differences']},kill_run_s={kill_s:.2f},"
+        f"clean_run_s={clean_s:.2f}")
+    return {"launches": {"decode_attention": killed["decode_attention"],
+                         "stream_copy":
+                             audit["drain_stream_copy_launches"]}}
+
+
+def state_diff(tree, snap: dict) -> list:
+    """Paths of the state's tensor leaves that differ in a bit from
+    ``snap``, a ``fault_tolerance._snapshot`` of it."""
+    import torch
+    from repro_torch.tree import flatten, name
+    return [name(p) for p, x in flatten(tree) if isinstance(x, torch.Tensor)
+            and not torch.equal(x.cpu(), snap[p])]
+
+
+def resilient_training() -> dict:
+    """Phase 15 (b): starcoder2-3b at full width, cut to 2 layers, fused
+    AdamW; three ``ResilientLoop`` runs from one initial state (written
+    back in place before each), whose final states must be equal to the
+    bit."""
+    import dataclasses
+    import shutil
+    import torch
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw, schedules
+    from repro_torch.runtime.elastic import FaultInjector
+    from repro_torch.runtime.fault_tolerance import (HeartbeatMonitor,
+                                                     ResilientLoop, _restore,
+                                                     _snapshot)
+    from repro_torch.tree import named_leaves
+    dev = torch.device(DEVICE)
+    arch = registry.get("starcoder2-3b")
+    cfg = dataclasses.replace(arch.cfg, n_layers=RES_LAYERS)
+    mod = arch.module
+    params = mod.init(cfg, torch.Generator(device=dev).manual_seed(15),
+                      device=dev)
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, schedule=schedules.warmup_cosine(
+        10, 100))
+    data = TokenPipeline(DataConfig(vocab=cfg.vocab_padded, batch=TRAIN_B,
+                                    seq=TRAIN_S, seed=TRAIN_SEED))
+    state = {"params": params, "opt": adamw.init_state(params)}
+    state_bytes = sum(x.numel() * x.element_size()
+                      for _, x in named_leaves(state)
+                      if isinstance(x, torch.Tensor))
+    n_params = sum(p.numel() for _, p in named_leaves(params))
+    initial = _snapshot(state)
+    n_leaves = sum(isinstance(x, torch.Tensor) for x in initial.values())
+    root = ROOT / "build" / "resilient_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    free = shutil.disk_usage(root).free
+    log(f"phase15/training_model,arch={cfg.name},layers={cfg.n_layers},"
+        f"d_model={cfg.d_model},heads={cfg.n_heads}x{cfg.resolved_head_dim},"
+        f"kv_heads={cfg.n_kv_heads},d_ff={cfg.d_ff},vocab={cfg.vocab_padded},"
+        f"params={n_params},state_bytes={state_bytes},batch={TRAIN_B}x"
+        f"{TRAIN_S},free_disk_bytes={free}")
+    losses: list = []
+    step_ms: list = []
+
+    def step_fn(st, s):
+        batch = {k: torch.as_tensor(v).to(dev)
+                 for k, v in data.batch_at(s).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = mod.loss_and_grad(cfg, st["params"], batch, remat=True)
+        _, opt, _ = adamw.apply(opt_cfg, st["params"], grads, st["opt"])
+        losses.append((s, float(loss)))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return {"params": st["params"], "opt": opt}
+
+    # two uninterrupted stretches from one state agree to the bit, or a
+    # replay could not
+    state = _restore(state, initial)
+    for s in range(2):
+        state = step_fn(state, s)
+    first = _snapshot(state)
+    state = _restore(state, initial)
+    for s in range(2):
+        state = step_fn(state, s)
+    diff = state_diff(state, first)
+    assert not diff, f"two runs of steps 0-1 differ in {diff}"
+    del first
+    log(f"phase15/determinism,steps=2,runs=2,leaves_bit_equal="
+        f"{n_leaves}/{n_leaves},losses={[x for _, x in losses]}")
+
+    ckpt_times = {"save": [], "restore": []}
+
+    def timed_checkpointer(directory):
+        ck = Checkpointer(str(directory), asynchronous=False, keep=1)
+        for what in ("save", "restore"):
+            fn = getattr(ck, what)
+
+            def wrapped(*a, _fn=fn, _what=what, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(*a, **kw)
+                torch.cuda.synchronize()
+                ckpt_times[_what].append(time.perf_counter() - t0)
+                return out
+            setattr(ck, what, wrapped)
+        return ck
+
+    def failing_at(at):
+        """A failure injector: at step ``at`` (once) the FaultInjector
+        kills worker-0, two seconds pass on the monitor's clock, and its
+        check raises WorkerFailure; the next call revives the worker."""
+        mon = HeartbeatMonitor(timeout=1.5)
+        inj = FaultInjector(mon)
+        clock = [0.0]
+        workers = ("worker-0", "worker-1")
+
+        def injector(step):
+            clock[0] += 1.0
+            if "worker-0" in inj.dead:
+                inj.revive("worker-0")
+                inj.beat_alive(workers, now=clock[0])
+                mon.check(now=clock[0])
+            inj.beat_alive(workers, now=clock[0])
+            if step == at and not inj.log:
+                inj.kill("worker-0")
+                clock[0] += 2.0
+                inj.beat_alive(workers, now=clock[0])
+            mon.check(now=clock[0])
+        return injector, inj
+
+    runs = {}
+    final = None
+    for run, every, fail in (("U", 100, None), ("F", RES_EVERY, RES_FAIL_F),
+                             ("S", 100, RES_FAIL_S)):
+        state = _restore(state, initial)
+        losses.clear()
+        step_ms.clear()
+        injector, inj = failing_at(fail) if fail is not None else (None,
+                                                                    None)
+        loop = ResilientLoop(timed_checkpointer(root / run),
+                             checkpoint_every=every)
+        t0 = time.perf_counter()
+        out = loop.run({"step": 0, **state}, step_fn, RES_STEPS,
+                       failure_injector=injector)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        state = {"params": out["params"], "opt": out["opt"]}
+        assert out["step"] == RES_STEPS, out["step"]
+        by_step: dict = {}
+        for s, x in losses:  # a replayed step gives its first loss again
+            assert by_step.setdefault(s, x) == x, (run, s, by_step[s], x)
+        runs[run] = {"restarts": loop.restarts, "losses": by_step,
+                     "executed_steps": len(losses), "seconds": run_s,
+                     "step_ms": list(step_ms),
+                     "log": [a for _, a, _ in inj.log] if inj else []}
+        if final is None:
+            final = _snapshot(state)
+        else:
+            diff = state_diff(state, final)
+            assert not diff, f"{run} differs from U in {diff}"
+            assert by_step == runs["U"]["losses"], (run, by_step)
+        shutil.rmtree(root / run)
+    assert runs["U"]["restarts"] == 0
+    assert runs["F"]["restarts"] == runs["S"]["restarts"] == 1, runs
+    assert runs["F"]["log"] == runs["S"]["log"] == ["kill", "revive"], runs
+    assert runs["F"]["executed_steps"] == RES_STEPS + RES_FAIL_F - 2
+    assert runs["S"]["executed_steps"] == RES_STEPS + RES_FAIL_S
+    shutil.rmtree(root, ignore_errors=True)
+    ck_bytes = state_bytes
+    save_s = sorted(ckpt_times["save"])
+    restore_s = ckpt_times["restore"]
+    assert len(restore_s) == 1, ckpt_times
+    log(f"phase15/resilient,runs=U;F;S,final_states_bit_equal=1,"
+        f"leaves={n_leaves},losses={[runs['U']['losses'][s] for s in range(RES_STEPS)]},"
+        f"losses_equal=1,restarts=U{runs['U']['restarts']};F"
+        f"{runs['F']['restarts']};S{runs['S']['restarts']},executed_steps="
+        f"U{runs['U']['executed_steps']};F{runs['F']['executed_steps']};S"
+        f"{runs['S']['executed_steps']},run_s="
+        + ";".join(f"{k}{v['seconds']:.2f}" for k, v in runs.items())
+        + f",step_ms_U={[round(x, 2) for x in runs['U']['step_ms']]}")
+    log(f"phase15/checkpoint,bytes={ck_bytes},saves={len(save_s)},"
+        f"save_s={[round(x, 3) for x in save_s]},save_GBps_median="
+        f"{ck_bytes / save_s[len(save_s) // 2] / 1e9:.3f},restore_s="
+        f"{restore_s[0]:.3f},restore_GBps={ck_bytes / restore_s[0] / 1e9:.3f}")
+    return {"runs": runs}
+
+
+def release_host_cache() -> str:
+    """Free what the earlier phases left: HBM blocks and the page-locked
+    blocks PyTorch's host allocator keeps for reuse (it never returns
+    them itself; the machine's host memory is 96 GiB).  Returns the call
+    this PyTorch offers for the latter ("none" where it has none)."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    for owner, name in ((torch.accelerator, "empty_host_cache"),
+                        (torch._C, "_host_emptyCache")):
+        fn = getattr(owner, name, None)
+        if fn is not None:
+            fn()
+            return name
+    return "none"
+
+
+def phase_elastic(stats: dict) -> dict:
+    """Phase 15: the elastic runtime on the card at full width."""
+    import resource
+    log(f"phase15/host,pinned_before={pinned_stats()},released_by="
+        f"{release_host_cache()},pinned_after={pinned_stats()}")
+    t_phase = time.perf_counter()
+    serving = elastic_serving(stats)
+    release_host_cache()
+    training = resilient_training()
+    log(f"phase15/done,seconds={time.perf_counter() - t_phase:.2f},"
+        f"pinned={pinned_stats()},max_rss_bytes="
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024}")
+    return {"serving": serving, "training": training}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
@@ -3671,6 +4200,7 @@ def main(argv=None) -> int:
     moe = timed(12, phase_moe, stats)
     training = timed(13, phase_training, stats, args.profile)
     fam = timed(14, phase_families, stats, args.profile)
+    elastic = timed(15, phase_elastic, stats)
     if args.full_gates:
         timed("_full_gates", phase_full_gates)
     log(f"run/seconds,{time.perf_counter() - t_run:.2f}")
@@ -3698,7 +4228,9 @@ def main(argv=None) -> int:
              "dlrm_walk": res["launches"]["stream_copy"],
              "semantic_dlrm": sem["launches"]["stream_copy"],
              "moe_expert_retier": moe["retier_stream_copy_launches"],
-             **training["launches"]},
+             **training["launches"],
+             "elastic_drain":
+                 elastic["serving"]["launches"]["stream_copy"]},
          "max_abs_err": sc["err"], "ms": sc["ms"],
          "plain_ms": sc["plain_ms"],
          "bound_ms": sc["bound_ms"], "bound_by": "bytes",
@@ -3716,7 +4248,9 @@ def main(argv=None) -> int:
              "moe_decode": moe["launches"]["decode_attention"],
              "rglru_decode": fam["rglru"]["launches"]["decode_attention"],
              "whisper_decode":
-                 fam["whisper"]["launches"]["decode_attention"]},
+                 fam["whisper"]["launches"]["decode_attention"],
+             "elastic_serving":
+                 elastic["serving"]["launches"]["decode_attention"]},
          "max_abs_err": da["err"], "ms": da["ms"], "plain_ms": da["plain_ms"],
          "bound_ms": da["bound_ms"], "bound_by": "bytes",
          "library_ms": da["library_ms"]},

@@ -1,7 +1,7 @@
 """Figure harness of the port: the paper figures whose modules are ported,
 and the semantic-tiering benchmark.
 
-    python -m repro_torch.benchmarks.run [--only fig2|...|fig11|hotness]
+    python -m repro_torch.benchmarks.run [--only fig2|...|hotness|elastic]
                                          [--device cpu|cuda]
 
 Prints ``name,us_per_call,derived`` CSV (us_per_call = 0 for purely
@@ -20,7 +20,7 @@ import traceback
 from repro_torch.device import resolve_device
 
 FIGURES = ("fig2", "fig3", "fig4", "fig5", "fig6", "fig8", "fig10", "fig11",
-           "hotness")
+           "hotness", "elastic")
 
 
 def main(argv=None) -> None:
@@ -33,7 +33,7 @@ def main(argv=None) -> None:
     from repro_torch.benchmarks import (bench_hotness, fig2_latency,
                                         fig3_seq_bw, fig4_dsa, fig5_random,
                                         fig6_redis, fig8_dlrm, fig10_dsb,
-                                        fig11_caption)
+                                        fig11_caption, fig_elastic)
     figs = {
         "fig2": lambda: fig2_latency.run(device=device),
         "fig3": lambda: fig3_seq_bw.run(device=device),
@@ -44,6 +44,7 @@ def main(argv=None) -> None:
         "fig10": lambda: fig10_dsb.run(device=device),
         "fig11": lambda: fig11_caption.run(device=device),
         "hotness": lambda: bench_hotness.run(device=device)[0],
+        "elastic": lambda: fig_elastic.run(device=device),
     }
     print("name,us_per_call,derived")
     failures = 0

@@ -25,7 +25,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.tree import flatten, keystr
+from repro_torch.tree import flatten, keystr, rebuild
 
 
 def _snapshot(leaf) -> tuple[np.ndarray, str]:
@@ -151,19 +151,4 @@ class Checkpointer:
                 values[p] = np.asarray(arr).astype(tmpl.dtype)
             else:
                 values[p] = arr
-        return step, _rebuild(template, values, ()), index["metadata"]
-
-
-def _rebuild(node, values: dict, path: tuple):
-    """``node`` with each leaf at a path in ``values`` replaced (modules and
-    tensors are restored in place and come back as themselves)."""
-    if isinstance(node, (torch.nn.Module, torch.Tensor)) or node is None:
-        return node
-    if isinstance(node, dict):
-        return {k: _rebuild(v, values, path + (
-                    tuple(k.split(".")) if isinstance(k, str) else (k,)))
-                for k, v in node.items()}
-    if isinstance(node, (list, tuple)):
-        return type(node)(_rebuild(v, values, path + (i,))
-                          for i, v in enumerate(node))
-    return values.get(path, node)
+        return step, rebuild(template, values), index["metadata"]

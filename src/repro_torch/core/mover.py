@@ -257,7 +257,8 @@ def stream_executor(*, block_bytes_hint: int = 1 << 20
     Its ``batch`` attribute moves a whole batch in one
     ``stream_copy_segments`` launch (one ``done`` event for all) when
     every descriptor carries one contiguous tensor payload and a
-    contiguous ``dst`` tensor of its shape, one dtype a side; for any
+    contiguous ``dst`` tensor of its shape, or every one carries a
+    :class:`Segments` payload on the card, one dtype a side; for any
     other batch it returns None and the mover executes per descriptor.
     The returned callable is flagged ``pipelined`` so
     ``BulkMover.modeled_cost`` switches to the overlapped-migration
@@ -325,9 +326,33 @@ def stream_executor(*, block_bytes_hint: int = 1 << 20
 
         return _tree_map(_copy, payload)
 
+    def _batch_segments(lists: Sequence[Segments],
+                        descs: Sequence[Descriptor]) -> Optional[list]:
+        """Segment-list payloads of one dtype a side, as one list."""
+        if len({t.dtype for x in lists for t in x.srcs}) > 1 or len(
+                {t.dtype for x in lists for t in x.dsts}) > 1:
+            return None
+        srcs, dsts, segs = [], [], []
+        for x in lists:
+            rows = np.array(x.segs, np.int64, copy=True).reshape(-1, 8)
+            rows[:, 0] += len(srcs)
+            rows[:, 3] += len(dsts)
+            srcs += x.srcs
+            dsts += x.dsts
+            segs.append(rows)
+        cuda = [t.device for t in (*srcs, *dsts) if t.is_cuda]
+        device = cuda[0] if cuda else torch.device(
+            "cuda", torch.cuda.current_device())
+        _launch(device, descs, lambda: _stream_ops.stream_copy_segments(
+            srcs, dsts, np.concatenate(segs), device=device))
+        return [x.dsts for x in lists]
+
     def _batch(descs: Sequence[Descriptor]) -> Optional[list]:
         srcs = [d.payload for d in descs]
         dsts = [d.dst for d in descs]
+        if descs and all(isinstance(x, Segments) and x.on_card()
+                         for x in srcs):
+            return _batch_segments(srcs, descs)
         if not descs or not all(
                 isinstance(x, torch.Tensor) and isinstance(o, torch.Tensor)
                 and x.shape == o.shape and x.is_contiguous()

@@ -34,8 +34,9 @@ Where the port differs from the reference, by design:
   retiles.  A cache object returned by those calls shares its pools with
   its parent; page maps, positions and lengths stay functional.
 * Page moves are data moves: each route-pure run of a slot group is
-  staged in its destination memory by the ``stream_copy`` kernel (the
-  mover's executor, or a direct launch without a mover), then landed in
+  staged, as one segment list, in its destination pool's staging buffer
+  (kept by the cache and grown on demand) by the ``stream_copy`` kernel
+  (the mover's executor, or a direct launch without a mover), then landed in
   its free slots by one ``stream_copy`` segment-list launch (a rebuild's
   staying pages ride the same launch).  The host never reads or writes a
   pool, so only a fenced move (``wait=True``) waits for the stream; an
@@ -60,7 +61,8 @@ from repro_torch.core.interleave import (_policy_device_map,
                                          page_segments,
                                          resolve_device_names,
                                          route_pure_runs)
-from repro_torch.core.mover import LANE_BULK, LANE_LATENCY, PINNED, Descriptor
+from repro_torch.core.mover import (LANE_BULK, LANE_LATENCY, PINNED,
+                                    Descriptor, Segments)
 from repro_torch.core.policy import MemPolicy
 from repro_torch.core.telemetry import GLOBAL_TELEMETRY
 from repro_torch.device import (DeviceLike, resolve_backend, resolve_device,
@@ -178,6 +180,8 @@ class TieredKVCache:
             out.__dict__["_local_cache"] = self.__dict__["_local_cache"]
         if "pos_parts" not in changes and "_pos_cache" in self.__dict__:
             out.__dict__["_pos_cache"] = self.__dict__["_pos_cache"]
+        if "_stages" in self.__dict__:
+            out.__dict__["_stages"] = self.__dict__["_stages"]
         return out
 
     def _with_host(self, dev: np.ndarray, local: np.ndarray
@@ -603,24 +607,58 @@ class TieredKVCache:
             return None
         return self.device if ordinal == 0 else PINNED
 
-    def _run_slab(self, pools, d: int, b: int, l0: int, n: int
-                  ) -> torch.Tensor:
-        """Slot ``b``'s rows of pages ``l0 .. l0+n`` in pool ``d``: a 2-D
-        ``(L, n * page_t * K * hd)`` view with contiguous rows."""
-        pt = self.page_t
-        return pools[d][:, b, l0 * pt:(l0 + n) * pt].flatten(1)
+    def _stage(self, ordinal: int, numel: int, dtype) -> torch.Tensor:
+        """A flat staging buffer of ``numel`` elements in pool
+        ``ordinal``'s memory: one a (pool, dtype), kept on the cache and
+        on every cache evolved from it, and grown on demand, so a retile
+        allocates no page-locked memory once it is large enough.  A
+        retile's landing reads it in stream order before the next
+        retile's gather (which waits on an event recorded after that
+        landing) writes it again."""
+        stages = self.__dict__.setdefault("_stages", {})
+        buf = stages.get((ordinal, dtype))
+        if buf is None or buf.numel() < numel:
+            buf = stages[(ordinal, dtype)] = torch.empty(
+                numel, dtype=dtype,
+                **shard_storage(ordinal, self.backend, self.device))
+        return buf[:numel]
+
+    def _gather_segments(self, r: "_Run", stage: torch.Tensor) -> Segments:
+        """Run ``r``'s slabs, every slot's K and V, as one segment list
+        into ``stage`` (a flat view of its destination's staging buffer,
+        ``2 * len(r.slots)`` slabs long): one launch on the card.
+        ``r.k``/``r.v`` become the staged per-slot views.  It bills the
+        run's whole pages, as the reference's per-page moves do."""
+        n = len(r.pages)
+        L, K, hd, _ = self._dims()
+        pools = (self.k_parts[r.src], self.v_parts[r.src])
+        B, T = pools[0].shape[1:3]
+        row = n * self.page_t * K * hd
+        stage = stage.view(2, len(r.slots), L, row)
+        segs = np.empty((2 * len(r.slots), 8), np.int64)
+        for side in (0, 1):
+            rows = segs[side * len(r.slots):(side + 1) * len(r.slots)]
+            rows[:, 0], rows[:, 2], rows[:, 3] = side, B * T * K * hd, 0
+            rows[:, 1] = (r.slots * T + r.l0 * self.page_t) * K * hd
+            rows[:, 4] = (side * len(r.slots) + np.arange(len(r.slots))) \
+                * L * row
+            rows[:, 5], rows[:, 6], rows[:, 7] = row, L, row
+        r.k, r.v = list(stage[0]), list(stage[1])
+        return Segments(tuple(p.view(-1) for p in pools),
+                        (stage.view(-1),), segs,
+                        self._page_kv_bytes() * len(r.slots) * n)
 
     def _ship_retile(self, groups, old_dev, new_dev, old_local, route, *,
                      mover, telemetry, source, lane, wait=True) -> list:
         """Movement on real device routes, gather-first: every moved run
         is staged in its destination's memory before any pool is
-        written.  With a mover: ONE batched descriptor per (slot group,
-        run), its payload the run's per-slot slabs (billed bytes
-        identical to per-page); the staged data is the executor's output.
-        Without one: one ``stream_copy`` per slab on the current stream,
-        billed to ``telemetry`` per run.  Returns the staged runs."""
-        pt = self.page_t
-        page_kv_bytes = self._page_kv_bytes()
+        written.  Each run is one segment list (every slot's K and V
+        slabs) into its destination's staging buffer
+        (:meth:`_gather_segments`), billed as its whole pages.  With a
+        mover: ONE descriptor per (slot group, run), and the executor
+        moves a route-pure batch of them in one launch on the card.
+        Without one: one launch a run on the current stream, billed to
+        ``telemetry``.  Returns the staged runs."""
         runs: list[_Run] = []
         for slots in groups.values():
             b0, sl = slots[0], np.asarray(slots)
@@ -636,51 +674,50 @@ class TieredKVCache:
                 p0 = mv[s]
                 runs.append(_Run(sl, int(od[p0]), int(nd[p0]), mv[s:e],
                                  int(ol[p0]), [], []))
-        if runs and mover is not None:
-            ready = None
-            if self.device.type == "cuda":
-                ready = torch.cuda.Event()
-                ready.record(torch.cuda.current_stream(self.device))
-            descs = []
-            for r in runs:
-                n = len(r.pages)
-                payload = (
-                    tuple(self._run_slab(self.k_parts, r.src, int(b), r.l0, n)
-                          for b in r.slots),
-                    tuple(self._run_slab(self.v_parts, r.src, int(b), r.l0, n)
-                          for b in r.slots))
-                descs.append(Descriptor(route[r.src], route[r.dst], payload,
-                                        lane=lane, source=source,
-                                        dst=self._memory(r.dst), ready=ready))
-            # One submission: descriptors batch (§6).  The landing needs
-            # the copies, so the host waits until each is enqueued (the
-            # card-side wait is on each copy's ``done`` event); the landing
-            # is a launch on this stream, and nothing waits for it.
-            futures = mover.issue(descs)
-            for r, f in zip(runs, futures):
-                r.k, r.v = (list(x) for x in f.result().result)
-            if wait and mover.asynchronous:
-                mover.wait_all()
-            if self.device.type == "cuda":
-                stream = torch.cuda.current_stream(self.device)
-                for desc in descs:
-                    if desc.done is not None:
-                        stream.wait_event(desc.done)
-        elif runs:
-            for r in runs:
-                n = len(r.pages)
+        if not runs:
+            return runs
+        L, K, hd, _ = self._dims()
+        dtype = self.k_parts[0].dtype
+        sizes = [2 * len(r.slots) * L * len(r.pages) * self.page_t * K * hd
+                 for r in runs]
+        need: dict = {}
+        for r, size in zip(runs, sizes):
+            need[r.dst] = need.get(r.dst, 0) + size
+        stages = {d: self._stage(d, n, dtype) for d, n in need.items()}
+        at = dict.fromkeys(need, 0)
+        payloads = []
+        for r, size in zip(runs, sizes):
+            payloads.append(self._gather_segments(
+                r, stages[r.dst][at[r.dst]:at[r.dst] + size]))
+            at[r.dst] += size
+        if mover is None:
+            for r, payload in zip(runs, payloads):
                 if telemetry is not None:
-                    telemetry.record_move(
-                        route[r.src], route[r.dst],
-                        page_kv_bytes * len(r.slots) * n, 0.0, source=source)
-                for pools, out in ((self.k_parts, r.k), (self.v_parts, r.v)):
-                    for b in r.slots:
-                        slab = self._run_slab(pools, r.src, int(b), r.l0, n)
-                        dst = torch.empty(
-                            slab.shape, dtype=slab.dtype,
-                            **shard_storage(r.dst, self.backend, self.device))
-                        out.append(stream_copy(slab, out=dst,
-                                               device=self.device))
+                    telemetry.record_move(route[r.src], route[r.dst],
+                                          payload.nbytes, 0.0, source=source)
+                payload.run(self.device)
+            return runs
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+        descs = [Descriptor(route[r.src], route[r.dst], payload, lane=lane,
+                            source=source, dst=self._memory(r.dst),
+                            ready=ready)
+                 for r, payload in zip(runs, payloads)]
+        # One submission: descriptors batch (§6).  The landing needs the
+        # copies, so the host waits until each is enqueued (the card-side
+        # wait is on each copy's ``done`` event); the landing is a launch
+        # on this stream, and nothing waits for it.
+        for f in mover.issue(descs):
+            f.result()
+        if wait and mover.asynchronous:
+            mover.wait_all()
+        if self.device.type == "cuda":
+            stream = torch.cuda.current_stream(self.device)
+            for desc in descs:
+                if desc.done is not None:
+                    stream.wait_event(desc.done)
         return runs
 
     def _land(self, pools_k: list, pools_v: list, runs, new_local_of,

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 from typing import Any, Union
 
+import torch
 from torch import nn
 
 Path = tuple[Union[str, int], ...]
@@ -89,3 +90,20 @@ def ref_key(path: Union[Path, str]) -> str:
     keys = [f"SequenceKey(idx={p})" if isinstance(p, int)
             else f"DictKey(key={p!r})" for p in path]
     return "(" + ", ".join(keys) + ("," if len(keys) == 1 else "") + ")"
+
+
+def rebuild(node: Any, values: dict, path: Path = ()) -> Any:
+    """``node`` with each leaf whose path is a key of ``values`` replaced by
+    that value.  Modules and tensors come back as themselves (a caller that
+    restores them writes into them in place); dicts, lists and tuples are
+    new containers."""
+    if isinstance(node, (nn.Module, torch.Tensor)) or node is None:
+        return node
+    if isinstance(node, dict):
+        return {k: rebuild(v, values, path + (
+                    tuple(k.split(".")) if isinstance(k, str) else (k,)))
+                for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(rebuild(v, values, path + (i,))
+                          for i, v in enumerate(node))
+    return values.get(path, node)

@@ -35,6 +35,7 @@ from benchmarks import fig6_redis as r_fig6  # noqa: E402
 from benchmarks import fig8_dlrm as r_fig8  # noqa: E402
 from benchmarks import fig10_dsb as r_fig10  # noqa: E402
 from benchmarks import fig11_caption as r_fig11  # noqa: E402
+from benchmarks import fig_elastic as r_elastic  # noqa: E402
 from repro.core.interleave import resolve_backend as r_backend  # noqa: E402
 from repro.models import registry as r_registry  # noqa: E402
 from repro_torch.benchmarks import bench_hotness as t_hotness  # noqa: E402
@@ -48,6 +49,7 @@ from repro_torch.benchmarks import fig6_redis as t_fig6  # noqa: E402
 from repro_torch.benchmarks import fig8_dlrm as t_fig8  # noqa: E402
 from repro_torch.benchmarks import fig10_dsb as t_fig10  # noqa: E402
 from repro_torch.benchmarks import fig11_caption as t_fig11  # noqa: E402
+from repro_torch.benchmarks import fig_elastic as t_elastic  # noqa: E402
 from repro_torch.benchmarks import run as t_run  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core import memo as t_memo  # noqa: E402
@@ -420,7 +422,8 @@ def test_run_harness_on_the_cpu(capsys):
     claims = [line for line in out if "/claims," in line]
     assert [c.split(",")[0] for c in claims] == [
         f"{fig}/claims" for fig in ("fig2", "fig3", "fig4", "fig5", "fig6",
-                                    "fig8", "fig10", "fig11", "hotness")]
+                                    "fig8", "fig10", "fig11", "hotness",
+                                    "elastic")]
     assert all(",0,ALL-VALIDATED (" in c for c in claims)
 
 
@@ -429,6 +432,38 @@ def test_run_harness_defaults_to_the_card():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         t_run.main(["--only", "fig8"])
+
+
+# -- the elastic timeline ---------------------------------------------------------
+@pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
+def test_fig_elastic_rows_match_reference(smoke):
+    """Segment A's controller timeline and Segment B's kill -> drain ->
+    recover on internvl2-2b ``.tiny()`` (the reference's weights carried
+    over): every row, the modeled ``step_us`` ones included."""
+    arch = r_registry.get(t_elastic.ARCH).tiny()
+    tree = arch.module.init(arch.cfg, jax.random.PRNGKey(0))
+    params = params_from_jax(t_registry.get(t_elastic.ARCH).tiny().cfg,
+                             jax.tree_util.tree_map(np.asarray, tree),
+                             device="cpu")
+    rows = t_elastic.run(smoke=smoke, device="cpu", params=params)
+    assert rows == r_elastic.run(smoke=smoke)
+    assert len(rows) == (3 if smoke else 7)
+
+
+def test_run_harness_validates_elastic(capsys):
+    with pytest.raises(SystemExit) as done:
+        t_run.main(["--only", "elastic", "--device", "cpu"])
+    assert done.value.code == 0
+    out = capsys.readouterr().out.splitlines()
+    assert sum(line.startswith("fig_elastic/") for line in out) == 7
+    assert out[-1].startswith("elastic/claims,0,ALL-VALIDATED (")
+
+
+def test_fig_elastic_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        t_elastic.run(smoke=True)
 
 
 # -- semantic tiering ----------------------------------------------------------------

@@ -216,6 +216,32 @@ def test_three_device_drain_bit_equal(model, donate):
         tc.drain_device("cxl-b", weights=(0.5, 0.5))
 
 
+@pytest.mark.parametrize("donate", [False, True])
+def test_three_device_drain_through_the_mover_bit_equal(model, donate):
+    """The drain's runs gathered through each package's mover (the port's
+    as one segment list a run): pools, maps, descriptors, billed bytes
+    and routes equal."""
+    rc, tc = _pair(model, "three", batch=3, headroom=8)
+    topo_r, topo_t = r_paper3(), t_paper3()
+    rt, tt = RTelemetry(), TTelemetry()
+    with RMover(topo_r, asynchronous=False, telemetry=rt) as rm, \
+            TMover(topo_t, asynchronous=False, telemetry=tt,
+                   device="cpu") as tm:
+        for name in ("cxl-a", "cxl-b"):
+            rc = rc.drain_device(name, mover=rm, telemetry=rt,
+                                 fast_tier=topo_r.fast.name, donate=donate)
+            tc = tc.drain_device(name, mover=tm, telemetry=tt,
+                                 fast_tier=topo_t.fast.name, donate=donate)
+            _same(rc, tc)
+        assert (tm.descriptors_submitted, tm.bytes_submitted) == (
+            rm.descriptors_submitted, rm.bytes_submitted)
+    def bills(tel):
+        return {k: (v["bytes_moved"], v["descriptors"], v["batches"])
+                for k, v in _routes(tel).items()}
+    assert bills(rt) == bills(tt)
+    assert tm.descriptors_submitted > 0
+
+
 def test_mover_descriptors_and_bytes_match(model):
     """One slot group, consecutive locals: one coalesced descriptor per
     run in both packages, the same billed bytes."""
@@ -304,6 +330,24 @@ def test_decode_step_logits_match(model):
     assert np.array_equal(_np(rc.page_device), _np(tc.page_device))
 
 
+def test_retiles_reuse_one_staging_buffer_a_pool(model):
+    """Every cache evolved from one stages its moved runs in one buffer a
+    destination pool, grown on demand: a walk repeated allocates none,
+    and the pools stay the reference's."""
+    rc, tc = _pair(model, "half", batch=3, headroom=8)
+    stages = ptrs = None
+    for _ in range(2):
+        for f in (0.25, 0.75, 0.5):
+            rc = rc.repartition_fraction(f, telemetry=RTelemetry())
+            tc = tc.repartition_fraction(f, telemetry=TTelemetry())
+            _same(rc, tc)
+            stages = stages or tc.__dict__["_stages"]
+            assert tc.__dict__["_stages"] is stages
+        now = {k: b.data_ptr() for k, b in stages.items()}
+        assert now and (ptrs is None or now == ptrs), (now, ptrs)
+        ptrs = now
+
+
 def t_sample(logits):
     return torch.argmax(logits, -1).numpy().astype(np.int32)
 
@@ -314,3 +358,44 @@ def test_cache_on_a_card_needs_one():
     cfg = t_registry.get(ARCH).tiny().cfg
     with pytest.raises(RuntimeError, match="CUDA"):
         TCache.create(cfg, 2, 32, TPolicy.membind("fast"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_mover", [True, False])
+def test_card_drain_gathers_a_batch_in_one_launch(with_mover):
+    """On the card, HBM and three pinned pools: a drain through the mover
+    launches ``stream_copy`` at most once a route-pure batch of 16
+    descriptors plus one landing, without one once a run plus one
+    landing, and every slot reads back what it held."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.benchmarks.common import launch_bound
+    from repro_torch.core.mover import stream_executor
+    from repro_torch.kernels.stream_copy import ops as sc_ops
+    cfg = t_registry.get(ARCH).tiny().cfg
+    topo = t_paper3()
+    names = (topo.fast.name,) + topo.slow_names
+    cache = TCache.create(cfg, 4, 64, TPolicy.weighted(names, (5, 1, 1, 1)),
+                          page_t=4, slow_headroom=8, device="cuda")
+    L, K, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = [[torch.randn((L, 48, K, hd), generator=gen, device="cuda")
+             for _ in range(2)] for _ in range(4)]
+    for i, (k, v) in enumerate(rows):
+        cache = cache.write_token_rows(i, 0, k, v)
+    tel = TTelemetry()
+    with TMover(topo, asynchronous=False, execute=stream_executor(),
+                telemetry=tel, device="cuda") as mover:
+        sc_ops.LAUNCHES.reset()
+        cache = cache.drain_device("cxl-c", mover=mover if with_mover
+                                   else None, telemetry=tel, donate=True)
+        torch.cuda.synchronize()
+        launches = sc_ops.LAUNCHES.reset()
+    descs = [r["descriptors"] for route, r in
+             tel.snapshot()["routes"].items() if route.startswith("cxl-c->")]
+    bound = launch_bound(descs) if with_mover else sum(descs) + 1
+    assert 0 < launches <= bound, (launches, descs)
+    assert not (cache.page_device.cpu().numpy() == 3).any()
+    for i, (k, v) in enumerate(rows):
+        k_got, v_got = cache.gather_token_rows(i, 0, 48)
+        assert torch.equal(k_got, k) and torch.equal(v_got, v), i
