@@ -207,6 +207,30 @@ wrong result or a missing kernel launch:
    (uninterrupted; a worker killed at step 3 with checkpoints every 2; a
    failure at step 1 before any checkpoint) end in states and losses
    equal to the bit; checkpoint save and restore seconds and GB/s.
+16. the pod-lowering tooling: ``launch/dryrun.lower_cell`` traces (fake
+   tensors, in parallel worker processes, before any card work) the
+   cells of the four timed steps and ``test_dryrun_machinery_small_mesh``'s
+   (internvl2-2b, 512 x 8, n_micro 2) against the card's memory: FLOPs,
+   eager bytes, argument and activation peak bytes, ``peak_per_device``
+   and ``fits_hbm`` beside ``total_memory``.  Then the steps of
+   ``launch/steps.py`` at full size, timed with CUDA events and the host
+   clock after one untimed step: (a) starcoder2-3b ``make_train_step``,
+   batch 8 x 128, fused AdamW, n_micro 1 and 2 from one state over two
+   steps (losses within 5e-3, then 1e-2; gradient norms within 1e-2
+   relative; the parameters' changes from the start apart by under lr/10
+   on average and a tenth of their L2; the first step's RMS change within
+   (lr/4, 2 lr)); (b) whisper-large-v3 ``make_train_step`` at 8 x 128
+   and its 1500 frames;
+   (c) starcoder2-3b ``make_serve_step`` over a bf16 16 x 4096 cache
+   filled to 3072 positions, 16 steps with counts from 0 (exactly 30 x 16
+   ``decode_attention`` launches), then a step against plain attention;
+   (d) rwkv6-7b ``make_prefill_step`` at 16 x 1024 without the chunked
+   policy (exactly 32 ``wkv6`` launches), its logits against the forward
+   with every layer's kernel call held to the plain recurrence.  Each
+   step beside its record's roofline terms (compute, memory, tier, the
+   dominant one), ``mfu`` (model FLOPs over the time at 989 TFLOP/s) and
+   ``x_bound`` (the time over the largest term); (a) and (b) print the
+   dry run's ``peak_per_device`` beside ``max_memory_allocated``.
 ``--full-gates`` then runs ``bench_hotpaths`` (4096 pages, the
 repartition timed the reference's one-pass way) and ``bench_serving``
 at full size, with their gates.
@@ -4151,6 +4175,386 @@ def phase_elastic(stats: dict) -> dict:
     return {"serving": serving, "training": training}
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the pod-lowering tooling on one card
+# ---------------------------------------------------------------------------
+STEPS_SERVE_B, STEPS_SERVE_T, STEPS_SERVE_FILL, STEPS_SERVE_N = 16, 4096, 3072, 16
+STEPS_PREFILL_B, STEPS_PREFILL_T = 16, 1024
+STEPS_TIMED = 2
+DENSE_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet, 700 W)
+
+
+def steps_cells():
+    """(label, arch, shape, lower_cell keywords) of phase 16's dry runs:
+    the four timed steps at their shapes (training at phase 13's batch,
+    fused: what is timed), and ``test_dryrun_machinery_small_mesh``'s
+    cell."""
+    from repro_torch.launch.shapes import ShapeSpec
+    train = ShapeSpec("steps_train", TRAIN_S, TRAIN_B, "train")
+    return [
+        ("a/n_micro=1", "starcoder2-3b", train,
+         {"n_micro": 1, "offload": False}),
+        ("a/n_micro=2", "starcoder2-3b", train,
+         {"n_micro": 2, "offload": False}),
+        ("b", "whisper-large-v3", train, {"n_micro": 1, "offload": False}),
+        ("c", "starcoder2-3b", ShapeSpec("steps_serve", STEPS_SERVE_T,
+                                         STEPS_SERVE_B, "decode"), {}),
+        # the plain recurrence's work, which the timed step's kernel does
+        ("d", "rwkv6-7b", ShapeSpec("steps_prefill", STEPS_PREFILL_T,
+                                    STEPS_PREFILL_B, "prefill"),
+         {"wkv_chunked": False}),
+        ("small_mesh_cell", "internvl2-2b",
+         ShapeSpec("train_tiny", 512, 8, "train"), {"n_micro": 2}),
+    ]
+
+
+def print_dry(label: str, rec: dict, total: int) -> None:
+    mem = rec["memory"]
+    log(f"phase16/dryrun/{label},arch={rec['arch']},shape={rec['shape']},"
+        f"kind={rec['kind']},n_micro={rec['n_micro']},offload_opt="
+        f"{rec['offload_opt']},flops={rec['hlo']['flops_per_device']:.6e},"
+        f"bytes={rec['hlo']['hbm_bytes_per_device']:.6e},"
+        f"argument_bytes={mem['argument_bytes']},activation_peak_bytes="
+        f"{mem['activation_peak_bytes']},peak_per_device="
+        f"{mem['peak_per_device']},fits_hbm={rec['fits_hbm']},"
+        f"total_memory={total},model_flops={rec['model_flops_total']:.6e},"
+        f"trace_s={rec['trace_s']}")
+
+
+def beside_roofline(label: str, rec: dict, ms: float) -> dict:
+    """A measured step beside its dry-run record's roofline terms."""
+    from repro_torch.benchmarks import roofline
+    t = roofline.terms(rec)
+    bound = max(t["compute_s"], t["memory_s"], t["collective_s"],
+                t["tier_s"])
+    out = {"ms": ms, "compute_s": t["compute_s"], "memory_s": t["memory_s"],
+           "tier_s": t["tier_s"], "dominant": t["dominant"],
+           "mfu": rec["model_flops_total"] / (ms * 1e-3 * DENSE_BF16_FLOPS),
+           "x_bound": ms * 1e-3 / bound}
+    log(f"phase16/roofline/{label},ms={ms:.3f},compute_s={t['compute_s']:.6f},"
+        f"memory_s={t['memory_s']:.6f},tier_s={t['tier_s']:.6f},"
+        f"dominant={t['dominant']},mfu={out['mfu']:.4f},"
+        f"x_bound={out['x_bound']:.3f}")
+    return out
+
+
+def timed_steps(step, n: int) -> tuple[float, float]:
+    """(CUDA events' ms, the host clock's ms) a call of ``step()`` over
+    ``n`` calls after one untimed call, the window synchronised."""
+    import torch
+    step()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(n):
+        step()
+    end.record()
+    end.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    ev_ms = start.elapsed_time(end) / n
+    return ev_ms, host_ms
+
+
+AGREE_STEPS = 2  # (a)'s steps held n_micro 2 against 1, on batches 0, 1
+# (a)'s loss limits a step: the first from one state; the second at
+# parameters the first step's bf16 rounding has already set apart (a few
+# per cent of the change), still a small share of what a step moves a loss
+LOSS_GAP = (5e-3, 1e-2)
+
+
+def update_gap(params, snap: dict, first: dict, dev) -> dict:
+    """``params``' change from ``first`` against ``snap``'s (the other
+    n_micro's after as many steps), leaf by leaf in fp32 on the card:
+    the RMS of ``snap``'s change, the RMS and the mean of the gap between
+    the two changes, the gap's L2 over the change's, and the largest
+    parameter gap."""
+    import torch
+    n, sq_ref, sq_gap, abs_gap, worst = 0, 0.0, 0.0, 0.0, 0.0
+    with torch.no_grad():
+        for k, p in params.named_parameters():
+            f = first[k].to(dev).float()
+            ref = snap[k].to(dev).float() - f
+            gap = (p.float() - f) - ref
+            n += p.numel()
+            sq_ref += float(torch.sum(ref * ref))
+            sq_gap += float(torch.sum(gap * gap))
+            abs_gap += float(torch.sum(gap.abs()))
+            worst = max(worst, float(gap.abs().max()))
+    return {"rms_change": (sq_ref / n) ** 0.5, "rms_gap": (sq_gap / n) ** 0.5,
+            "mean_abs_gap": abs_gap / n,
+            "rel_gap": (sq_gap / sq_ref) ** 0.5 if sq_ref else float("inf"),
+            "param_gap": worst}
+
+
+def check_update_gap(gap: dict, lr: float, step: int) -> None:
+    """(a)'s limits on one step's :func:`update_gap`.  AdamW's first
+    update is ~lr a parameter, rounded to the bf16 grid (|p| < 2^-4 for
+    all but a few of the 0.02-std weights, whose grid is finer than lr),
+    so its RMS lies within (lr/4, 2 lr).  The two gradients differ only by
+    bf16 rounding (n_micro 1 keeps bf16 gradients, 2 sums them in fp32),
+    so the changes part only where an update lands near a rounding
+    boundary, by one bf16 spacing: the mean gap stays below lr/10 and the
+    gap's L2 below a tenth of the change's.  Skipping the update, or
+    taking one micro-batch's gradient (which flips the sign of a large
+    share of updates), breaks them."""
+    if step == 0:
+        assert lr / 4 < gap["rms_change"] < 2 * lr, gap
+    assert gap["mean_abs_gap"] < lr / 10, gap
+    assert gap["rel_gap"] < 0.1, gap
+    assert gap["param_gap"] < 5e-2, gap
+
+
+def steps_training(records: dict, dev) -> dict:
+    """(a) starcoder2-3b through ``make_train_step`` at n_micro 1 and 2
+    from one state: two steps on two batches, the losses within
+    :data:`LOSS_GAP`, gradient norms within 1e-2 relative, and each
+    parameter's change from the start held n_micro 2 against 1
+    (:func:`check_update_gap`); (b) whisper-large-v3's training step."""
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+    out = {}
+    arch = registry.get("starcoder2-3b")
+    cfg = arch.cfg
+    params = arch.module.init(cfg, torch.Generator(device=dev)
+                              .manual_seed(13), device=dev)
+    first = {k: p.detach().to("cpu", copy=True)
+             for k, p in params.named_parameters()}
+    data = TokenPipeline(DataConfig(vocab=cfg.vocab_padded, batch=TRAIN_B,
+                                    seq=TRAIN_S, seed=TRAIN_SEED))
+    batches = [{k: torch.as_tensor(v).to(dev)
+                for k, v in data.batch_at(i).items()}
+               for i in range(AGREE_STEPS)]
+    opt_cfg = adamw.AdamWConfig()
+    losses, norms, snaps, gaps = {}, {}, {}, {}
+    for n_micro in (1, 2):
+        with torch.no_grad():
+            for k, p in params.named_parameters():
+                p.copy_(first[k])
+        state = adamw.init_state(params)
+        fn = steps.make_train_step(arch, opt_cfg, n_micro=n_micro)
+        for i, batch in enumerate(batches):
+            _, state, m = fn(params, state, batch)
+            losses[n_micro, i] = float(m["loss"])
+            norms[n_micro, i] = float(m["grad_norm"])
+            if n_micro == 1:
+                snaps[i] = {k: p.detach().to("cpu", copy=True)
+                            for k, p in params.named_parameters()}
+            else:
+                gaps[i] = update_gap(params, snaps[i], first, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()  # a step's peak, not the check's
+        ev_ms, host_ms = timed_steps(lambda: fn(params, state, batches[0]),
+                                     STEPS_TIMED)
+        peak = torch.cuda.max_memory_allocated()
+        label = f"a/n_micro={n_micro}"
+        log(f"phase16/steps/{label},arch={cfg.name},batch={TRAIN_B}x"
+            f"{TRAIN_S},loss_first={losses[n_micro, 0]:.6f},step_ms="
+            f"{ev_ms:.3f},host_ms={host_ms:.3f},peak_hbm_bytes={peak},"
+            f"dryrun_peak_per_device="
+            f"{records[label]['memory']['peak_per_device']}")
+        out[label] = beside_roofline(label, records[label], ev_ms)
+        out[label]["peak_hbm_bytes"] = peak
+        del state
+    for i in range(AGREE_STEPS):
+        loss_gap = abs(losses[1, i] - losses[2, i])
+        norm_gap = abs(norms[2, i] / norms[1, i] - 1)
+        g = gaps[i]
+        log(f"phase16/steps/a/n_micro_agree,step={i + 1},lr={opt_cfg.lr},"
+            f"loss_gap={loss_gap:.3e},grad_norm={norms[1, i]:.6f},"
+            f"grad_norm_rel_gap={norm_gap:.3e},rms_change="
+            f"{g['rms_change']:.3e},rms_gap={g['rms_gap']:.3e},mean_abs_gap="
+            f"{g['mean_abs_gap']:.3e},rel_gap={g['rel_gap']:.3e},"
+            f"param_gap={g['param_gap']:.3e}")
+        assert np.isfinite(losses[1, i]) and loss_gap < LOSS_GAP[i], loss_gap
+        assert norm_gap < 1e-2, norm_gap
+        check_update_gap(g, opt_cfg.lr, i)
+    del params, first, snaps, batches, fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    arch = registry.get("whisper-large-v3")
+    cfg = arch.cfg
+    params = arch.module.init(cfg, torch.Generator(device=dev)
+                              .manual_seed(17), device=dev)
+    data = TokenPipeline(DataConfig(vocab=cfg.vocab_padded, batch=TRAIN_B,
+                                    seq=TRAIN_S, seed=TRAIN_SEED))
+    batch = {k: torch.as_tensor(v).to(dev)
+             for k, v in data.batch_at(0).items()}
+    batch["frames"] = torch.randn(
+        (TRAIN_B, cfg.encoder.n_ctx, cfg.d_model),
+        generator=torch.Generator(device=dev).manual_seed(0), device=dev
+    ).to(torch.bfloat16)
+    state = adamw.init_state(params)
+    fn = steps.make_train_step(arch, adamw.AdamWConfig())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    ev_ms, host_ms = timed_steps(
+        lambda: losses.append(fn(params, state, batch)[2]["loss"]),
+        STEPS_TIMED)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    assert all(np.isfinite(losses)), losses
+    log(f"phase16/steps/b,arch={cfg.name},batch={TRAIN_B}x{TRAIN_S},frames="
+        f"{cfg.encoder.n_ctx},losses={losses},step_ms={ev_ms:.3f},host_ms="
+        f"{host_ms:.3f},peak_hbm_bytes={peak},dryrun_peak_per_device="
+        f"{records['b']['memory']['peak_per_device']}")
+    out["b"] = beside_roofline("b", records["b"], ev_ms)
+    out["b"]["peak_hbm_bytes"] = peak
+    return out
+
+
+def steps_serving(records: dict, dev) -> dict:
+    """(c) starcoder2-3b through ``make_serve_step`` over a bf16 cache of
+    16 x 4096 filled to 3072 positions: 16 steps, counts from 0 around
+    them (one ``decode_attention`` launch a layer a step), then a step
+    against the same step with plain attention."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.launch import steps
+    from repro_torch.models import registry
+    arch = registry.get("starcoder2-3b")
+    cfg = arch.cfg
+    params = arch.module.init(cfg, torch.Generator(device=dev)
+                              .manual_seed(6), device=dev)
+    cache = arch.module.init_cache(cfg, STEPS_SERVE_B, STEPS_SERVE_T,
+                                   device=dev)
+    g = torch.Generator(device=dev).manual_seed(16)
+    for name in ("k", "v"):
+        cache[name][:, :, :STEPS_SERVE_FILL].normal_(generator=g)
+    cache["len"].fill_(STEPS_SERVE_FILL)
+    serve = steps.make_serve_step(arch)
+    tok = torch.randint(0, cfg.vocab, (STEPS_SERVE_B,), generator=g,
+                        device=dev)
+    state = {"cache": cache, "tok": tok}
+
+    def step():
+        logits, state["cache"] = serve(params, state["cache"], state["tok"])
+        state["tok"] = torch.argmax(logits, dim=-1)
+
+    step()  # untimed
+    torch.cuda.synchronize()
+    da_ops.LAUNCHES.reset()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(STEPS_SERVE_N):
+        step()
+    end.record()
+    end.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / STEPS_SERVE_N
+    launches = da_ops.LAUNCHES.count
+    ms = start.elapsed_time(end) / STEPS_SERVE_N
+    want = cfg.n_layers * STEPS_SERVE_N
+    assert launches == want, (launches, want)
+    copy = {k: v.clone() for k, v in state["cache"].items()}
+    got, _ = serve(params, state["cache"], state["tok"])
+    plain, _ = arch.module.decode_step(cfg, params, copy, state["tok"],
+                                       attend=_plain_attend)
+    check = check_greedy(got, plain, "steps serve step", 0.5)
+    log(f"phase16/steps/c,arch={cfg.name},batch={STEPS_SERVE_B},cache="
+        f"{STEPS_SERVE_T},filled={STEPS_SERVE_FILL},steps={STEPS_SERVE_N},"
+        f"step_ms={ms:.3f},host_ms={host_ms:.3f},tokens_per_s="
+        f"{STEPS_SERVE_B / (ms * 1e-3):.1f},decode_attention_launches="
+        f"{launches},want={want},vs_plain={check}")
+    out = beside_roofline("c", records["c"], ms)
+    out["launches"] = launches
+    return out
+
+
+def steps_prefill(records: dict, dev) -> dict:
+    """(d) rwkv6-7b through ``make_prefill_step`` at 16 x 1024 without the
+    chunked policy: one ``wkv6`` launch a layer, the logits against the
+    forward with every layer's kernel call held to the plain recurrence
+    (phase 8's check)."""
+    import torch
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.launch import steps
+    from repro_torch.models import registry
+    arch = registry.get("rwkv6-7b")
+    cfg = arch.cfg
+    params = arch.module.init(cfg, torch.Generator(device=dev)
+                              .manual_seed(8), device=dev)
+    g = torch.Generator(device=dev).manual_seed(24)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (STEPS_PREFILL_B,
+                                                    STEPS_PREFILL_T),
+                                     generator=g, device=dev)}
+    prefill = steps.make_prefill_step(arch)
+    prefill(params, batch)  # untimed
+    torch.cuda.synchronize()
+    wkv_ops.LAUNCHES.reset()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    logits = prefill(params, batch)
+    end.record()
+    end.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    launches = wkv_ops.LAUNCHES.count
+    assert launches == cfg.n_layers, (launches, cfg.n_layers)
+    errs: list = []
+    with torch.no_grad():
+        plain = arch.module.forward(cfg, params, batch["tokens"],
+                                    last_only=True,
+                                    wkv=checked_wkv(errs))[:, -1]
+    check = check_greedy(logits, plain, "steps prefill")
+    ms = start.elapsed_time(end)
+    log(f"phase16/steps/d,arch={cfg.name},batch={STEPS_PREFILL_B}x"
+        f"{STEPS_PREFILL_T},step_ms={ms:.3f},host_ms={host_ms:.3f},"
+        f"tokens_per_s={STEPS_PREFILL_B * STEPS_PREFILL_T / (ms * 1e-3):.1f},"
+        f"wkv6_launches={launches},layers={cfg.n_layers},"
+        f"wkv6_max_rel_err={max(errs):.3e},vs_plain={check}")
+    out = beside_roofline("d", records["d"], ms)
+    out["launches"] = launches
+    return out
+
+
+def phase_steps() -> dict:
+    """Phase 16: the dry run against the card's memory (its traces in
+    parallel worker processes, before any card work), then the four timed
+    steps of ``launch/steps.py`` at full size, each beside its roofline."""
+    import concurrent.futures
+    import multiprocessing
+    import torch
+    from repro_torch.launch import dryrun
+    dev = torch.device(DEVICE)
+    total = torch.cuda.get_device_properties(0).total_memory
+    cells = steps_cells()
+    t_phase = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=len(cells),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = {label: pool.submit(dryrun.lower_cell, arch_id, shape,
+                                      hbm_bytes=total, **kw)
+                   for label, arch_id, shape, kw in cells}
+        records = {label: f.result() for label, f in futures.items()}
+    for label, rec in records.items():
+        print_dry(label, rec, total)
+        assert rec["hlo"]["flops_per_device"] > 0 and rec["fits_hbm"], label
+    log(f"phase16/dryrun/seconds,{time.perf_counter() - t_phase:.2f}")
+    out = {"train": steps_training(records, dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["serve"] = steps_serving(records, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["prefill"] = steps_prefill(records, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase16/done,seconds={time.perf_counter() - t_phase:.2f}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
@@ -4201,6 +4605,7 @@ def main(argv=None) -> int:
     training = timed(13, phase_training, stats, args.profile)
     fam = timed(14, phase_families, stats, args.profile)
     elastic = timed(15, phase_elastic, stats)
+    steps = timed(16, phase_steps)
     if args.full_gates:
         timed("_full_gates", phase_full_gates)
     log(f"run/seconds,{time.perf_counter() - t_run:.2f}")
@@ -4250,7 +4655,8 @@ def main(argv=None) -> int:
              "whisper_decode":
                  fam["whisper"]["launches"]["decode_attention"],
              "elastic_serving":
-                 elastic["serving"]["launches"]["decode_attention"]},
+                 elastic["serving"]["launches"]["decode_attention"],
+             "steps_serve": steps["serve"]["launches"]},
          "max_abs_err": da["err"], "ms": da["ms"], "plain_ms": da["plain_ms"],
          "bound_ms": da["bound_ms"], "bound_by": "bytes",
          "library_ms": da["library_ms"]},
@@ -4263,7 +4669,8 @@ def main(argv=None) -> int:
              "rwkv_training_step":
                  fam["training"]["wkv6_training_launches"],
              "rwkv_tiny_driver":
-                 fam["training"]["wkv6_tiny_driver_launches"]},
+                 fam["training"]["wkv6_tiny_driver_launches"],
+             "steps_prefill": steps["prefill"]["launches"]},
          "max_abs_err": wkv["err"], "ms": wkv["ms"],
          "plain_ms": wkv["plain_ms"], "bound_ms": wkv["bound_ms"],
          "bound_by": wkv["bound_by"], "library_ms": None},

@@ -1,14 +1,17 @@
 """Figure harness of the port: the paper figures whose modules are ported,
-and the semantic-tiering benchmark.
+the semantic-tiering benchmark, and the roofline rows of the dry run.
 
     python -m repro_torch.benchmarks.run [--only fig2|...|hotness|elastic]
-                                         [--device cpu|cuda]
+                                         [--device cpu|cuda] [--skip-roofline]
 
 Prints ``name,us_per_call,derived`` CSV (us_per_call = 0 for purely
 derived/simulated rows) and one ``figN/claims,0,ALL-VALIDATED`` or
 ``CLAIM-FAILED`` row per figure; exits 1 on any failure.  The device is
 the card unless ``--device cpu`` is given: without a card the harness
-raises rather than running on the CPU.
+raises rather than running on the CPU.  Without ``--only`` the roofline
+rows of ``python -m repro_torch.launch.dryrun``'s records follow (one H100's
+peaks, :mod:`repro_torch.benchmarks.roofline`); ``--skip-roofline`` when
+there are none yet.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--only", default=None, choices=FIGURES)
     ap.add_argument("--device", default=None, choices=("cpu", "cuda"))
+    ap.add_argument("--skip-roofline", action="store_true")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
 
@@ -63,6 +67,19 @@ def main(argv=None) -> None:
             failures += 1
             traceback.print_exc()
             print(f"{name}/claims,0,ERROR")
+    if not args.skip_roofline and not args.only:
+        try:
+            from repro_torch.benchmarks import roofline
+            recs = roofline.load_records()
+            if recs:
+                for row in roofline.csv_rows(recs):
+                    print(row)
+            else:
+                print("roofline,0,NO-DRYRUN-ARTIFACTS "
+                      "(run repro_torch.launch.dryrun)")
+        except Exception:
+            traceback.print_exc()
+            failures += 1
     sys.exit(1 if failures else 0)
 
 

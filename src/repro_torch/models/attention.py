@@ -8,7 +8,9 @@ of the shared-prefix pool — exactly, by the log-sum-exp algebra.
 
 ``attention`` is the reference's exact full-sequence attention (causal,
 with an optional sliding ``window``), its query axis cut into chunks so
-the score block is (chunk, S).  ``decode_attention`` is the model-level
+the score block is (chunk, S); under a policy with ``_flash`` each
+query chunk runs :func:`block_flash`, an online softmax over KV chunks
+(plain torch, as the reference's is jnp).  ``decode_attention`` is the model-level
 decode step over one layer's cache, full or ring-buffer (``window``);
 where the reference's per-partition attention is jnp, the port's goes
 through ``attend_partial`` and so runs the kernel on the card.  It
@@ -24,10 +26,11 @@ import torch
 
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention.ref import NEG_INF
-from repro_torch.models.common import apply_rope, he
+from repro_torch.models.common import apply_rope, current_policy, he, \
+    maybe_shard
 
 __all__ = ["NEG_INF", "attn_params", "attend_partial", "merge_partials",
-           "attention", "decode_attention"]
+           "attention", "block_flash", "decode_attention"]
 
 
 def attn_params(gen: torch.Generator, d_model: int, n_heads: int,
@@ -109,7 +112,16 @@ def attention(x: torch.Tensor, p: dict, *, n_heads: int, n_kv_heads: int,
     (B,S).  Returns (B,S,D).  Scores in the activation dtype, softmax in
     fp32 over the finite ``NEG_INF`` mask, as the reference.
     ``kv_override=(k, v, kv_positions)`` attends over given K/V (B,Sk,K,hd)
-    instead of x's (cross-attention: not causal, K not rotated)."""
+    instead of x's (cross-attention: not causal, K not rotated).
+
+    An installed policy (:func:`repro_torch.models.common.activation_sharding`)
+    sets the query chunk (``_q_chunk``) and, with ``_flash``, takes
+    :func:`block_flash` over KV chunks of ``_kv_chunk`` (default 1024)
+    when the KV length is a multiple of it and longer, as the reference
+    does."""
+    pol = current_policy()
+    if pol and "_q_chunk" in pol:
+        q_chunk = pol["_q_chunk"]
     B, S, _ = x.shape
     if kv_override is None:
         q, k, v = _project_qkv(x, p, n_heads, n_kv_heads, head_dim)
@@ -125,22 +137,32 @@ def attention(x: torch.Tensor, p: dict, *, n_heads: int, n_kv_heads: int,
         causal = False
     if use_rope:
         q = apply_rope(q, positions, rope_theta, rope_pct)
+    q = maybe_shard(q, "act_bshd")
+    k = maybe_shard(k, "act_bskd")
+    v = maybe_shard(v, "act_bskd")
     Sk = k.shape[1]
 
-    def block(q_blk: torch.Tensor, pos_blk: torch.Tensor) -> torch.Tensor:
+    def block_exact(q_blk: torch.Tensor, pos_blk: torch.Tensor
+                    ) -> torch.Tensor:
         scores = _gqa_scores(q_blk, k)  # (B,K,G,C,S)
-        mask = torch.ones((B, pos_blk.shape[1], Sk), dtype=torch.bool,
-                          device=x.device)
-        if causal:
-            mask &= pos_blk[:, :, None] >= kv_pos[:, None, :]
-        if window:
-            mask &= pos_blk[:, :, None] - kv_pos[:, None, :] < window
+        mask = _mask(pos_blk, kv_pos, causal, window)
         # a Python scalar, cast to the scores' dtype like the reference's
         # constant (a device tensor made here would copy from the host
         # and wait for the card every call)
         scores = torch.where(mask[:, None, None], scores, NEG_INF)
         probs = torch.softmax(scores.to(torch.float32), dim=-1).to(x.dtype)
         return _gqa_out(probs, v)
+
+    kv_chunk = int(pol.get("_kv_chunk", 1024)) if pol else 1024
+    use_flash = bool(pol and pol.get("_flash")) \
+        and Sk % kv_chunk == 0 and Sk > kv_chunk
+    if use_flash:
+        def block(q_blk, pos_blk):
+            return block_flash(q_blk, pos_blk, k, v, kv_pos, causal=causal,
+                               window=window, kv_chunk=kv_chunk
+                               ).to(x.dtype)
+    else:
+        block = block_exact
 
     if S % q_chunk:
         # largest divisor of S that is <= q_chunk; 1 leaves it unchunked
@@ -152,6 +174,49 @@ def attention(x: torch.Tensor, p: dict, *, n_heads: int, n_kv_heads: int,
                                positions[:, i:i + q_chunk])
                          for i in range(0, S, q_chunk)], dim=1)
     return out.reshape(B, S, n_heads * head_dim) @ p["wo"]
+
+
+def _mask(pos_q: torch.Tensor, pos_k: torch.Tensor, causal: bool,
+          window: int) -> torch.Tensor:
+    """(B, Sq, Sk) bool: which keys each query may see."""
+    mask = torch.ones((pos_q.shape[0], pos_q.shape[1], pos_k.shape[1]),
+                      dtype=torch.bool, device=pos_q.device)
+    if causal:
+        mask &= pos_q[:, :, None] >= pos_k[:, None, :]
+    if window:
+        mask &= pos_q[:, :, None] - pos_k[:, None, :] < window
+    return mask
+
+
+def block_flash(q_blk: torch.Tensor, pos_blk: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor, kv_pos: torch.Tensor, *, causal: bool,
+                window: int, kv_chunk: int) -> torch.Tensor:
+    """Online-softmax attention of a query block over KV chunks: the
+    (C, S_kv) score tensor never exists, only (C, kv_chunk) blocks, the
+    running max, sum and output kept in fp32 (the reference's
+    ``block_flash``).  q_blk: (B,C,H,hd); k, v: (B,Sk,K,hd) with Sk a
+    multiple of ``kv_chunk``.  Returns (B,C,H,hd) fp32."""
+    B, C, H, hd = q_blk.shape
+    K = k.shape[2]
+    G = H // K
+    f32 = torch.float32
+    acc = torch.zeros((B, K, G, C, hd), dtype=f32, device=q_blk.device)
+    m = torch.full((B, K, G, C), NEG_INF, dtype=f32, device=q_blk.device)
+    l = torch.zeros((B, K, G, C), dtype=f32, device=q_blk.device)
+    for j in range(0, k.shape[1], kv_chunk):
+        kj, vj = k[:, j:j + kv_chunk], v[:, j:j + kv_chunk]
+        s = _gqa_scores(q_blk, kj).to(f32)  # (B,K,G,C,ck)
+        mask = _mask(pos_blk, kv_pos[:, j:j + kv_chunk], causal, window)
+        s = torch.where(mask[:, None, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p_ = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p_.sum(dim=-1)
+        pv = torch.einsum("bkgqs,bskh->bkgqh", p_.to(vj.dtype), vj)
+        acc = acc * alpha[..., None] + pv.to(f32)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]  # (B,K,G,C,hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, C, H, hd)
 
 
 # ---------------------------------------------------------------------------

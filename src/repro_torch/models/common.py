@@ -1,13 +1,21 @@
-"""Shared model primitives: norms, RoPE, MLPs, initialisers, dtypes.
+"""Shared model primitives: norms, RoPE, MLPs, initialisers, dtypes, and
+the activation-policy hooks.
 
-The reference's activation-sharding hooks have no counterpart: one card
-has no mesh.  Initialisers draw from an explicit ``torch.Generator``; its
-numbers differ from ``jax.random``'s, so tests that compare the two
-packages carry the reference's parameters across
+The reference's launch code installs a policy (logical activation name ->
+sharding spec, plus a few ``_``-prefixed switches the models read: query
+and KV chunk sizes, flash attention, chunked WKV, the expert-parallel
+context) around model calls.  The port keeps the same thread-local
+policy: the models read its switches, and :func:`maybe_shard` is the
+identity, since one card has no mesh to constrain an activation to.
+Initialisers draw from an explicit ``torch.Generator``; its numbers
+differ from ``jax.random``'s, so tests that compare the two packages
+carry the reference's parameters across
 (:func:`repro_torch.convert.params_from_jax`)."""
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Callable, Optional
 
 import torch
@@ -15,6 +23,34 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.tree import named_leaves
+
+
+# ---------------------------------------------------------------------------
+# Activation-policy hooks.  launch/shardings.py builds a policy dict
+# {logical_name: spec, "_switch": value}; models call maybe_shard(x, name)
+# at the reference's names.  Without a policy this is all the identity.
+# ---------------------------------------------------------------------------
+_SHARDING_POLICY = threading.local()
+
+
+def current_policy() -> Optional[dict]:
+    return getattr(_SHARDING_POLICY, "policy", None)
+
+
+@contextlib.contextmanager
+def activation_sharding(policy: dict):
+    prev = current_policy()
+    _SHARDING_POLICY.policy = policy
+    try:
+        yield
+    finally:
+        _SHARDING_POLICY.policy = prev
+
+
+def maybe_shard(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``x`` itself.  The reference constrains ``x`` to the policy's spec
+    for ``name``; one card has nothing to constrain it to."""
+    return x
 
 
 # ---------------------------------------------------------------------------

@@ -18,8 +18,11 @@ Shared experts are one dense MLP.  The leading ``first_dense`` dense
 layers and the repeating unit (an optional dense layer and a MoE layer,
 ``every`` in {1, 2}) keep the reference's tree: ``head_dense`` and
 ``units.{dense,moe}`` stacked over a leading axis.  ``routed_mlp``
-takes the single-device path; the reference's expert-parallel
-``moe_mlp_ep`` (a mesh's all-to-all) comes with the pod tooling.
+takes the single-device path, or :func:`moe_mlp_ep` when the installed
+policy's ``_ep`` holds a ``torch.distributed`` process group whose size
+divides the experts and the tokens: the reference's expert-parallel
+dispatch (per-rank routing, one all-to-all each way), where the
+reference's runs over a mesh axis in ``shard_map``.
 ``decode_step`` writes the cache in place, as the dense decode does.
 ``loss`` adds the routers' load-balance and z losses to the token NLL.
 """
@@ -27,9 +30,10 @@ from __future__ import annotations
 
 import math
 from functools import partial
-from typing import Callable, Optional, Union
+from typing import Callable, NamedTuple, Optional, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -39,9 +43,9 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as dense
 from repro_torch.models.common import (ParamTree, apply_norm, cross_entropy,
-                                       dtype_of, embed_init, he,
-                                       loss_and_grad_of, mlp_apply,
-                                       mlp_params, norm_params)
+                                       current_policy, dtype_of, embed_init,
+                                       he, loss_and_grad_of, maybe_shard,
+                                       mlp_apply, mlp_params, norm_params)
 
 
 class MoEParams(nn.Module):
@@ -120,19 +124,33 @@ def capacity(tokens: int, spec: MoESpec) -> int:
     return max(8, -(-C // 8) * 8)
 
 
-def moe_mlp(x2d: torch.Tensor, p: dict, spec: MoESpec, act: str):
-    """Routed expert MLP over flat tokens.  Returns (y (T,D), aux)."""
-    T, D = x2d.shape
+class Route(NamedTuple):
+    """A batch's routing over its T * top_k (token, choice) pairs, sorted
+    stably by expert id: ``order`` the pairs' sort, ``keep`` whether a
+    pair got one of its expert's ``C`` slots, ``dest`` its slot (an
+    overflow pair's is the spare row ``E * C``), ``weights`` its gate
+    weight (0 when dropped)."""
+    logits: torch.Tensor  # (T, E) fp32
+    probs: torch.Tensor
+    gate_ids: torch.Tensor  # (T, top_k)
+    order: torch.Tensor
+    sorted_ids: torch.Tensor
+    keep: torch.Tensor
+    dest: torch.Tensor
+    weights: torch.Tensor
+
+
+def _route(x2d: torch.Tensor, router: torch.Tensor, spec: MoESpec,
+           C: int) -> Route:
+    """Top-k routing with ``C`` slots an expert."""
+    T = x2d.shape[0]
     E, K = spec.n_experts, spec.top_k
     dev = x2d.device
-    logits = x2d.to(torch.float32) @ p["router"].to(torch.float32)  # (T,E)
+    logits = x2d.to(torch.float32) @ router.to(torch.float32)  # (T,E)
     probs = torch.softmax(logits, dim=-1)
     gate_w, gate_ids = torch.topk(probs, K, dim=-1)
     gate_w = gate_w / torch.clamp_min(gate_w.sum(-1, keepdim=True), 1e-9)
-    C = capacity(T, spec)
-
     flat_ids = gate_ids.reshape(-1)
-    flat_w = gate_w.reshape(-1)
     order = torch.argsort(flat_ids, stable=True)
     sorted_ids = flat_ids[order]
     seg_start = torch.searchsorted(sorted_ids,
@@ -141,48 +159,154 @@ def moe_mlp(x2d: torch.Tensor, p: dict, spec: MoESpec, act: str):
     keep = pos < C
     dest = torch.where(keep, sorted_ids * C + pos,
                        torch.full_like(pos, E * C))  # overflow -> spare row
-    src_tok = order // K
+    w = (gate_w.reshape(-1)[order] * keep).to(x2d.dtype)
+    return Route(logits, probs, gate_ids, order, sorted_ids, keep, dest, w)
 
-    buf = torch.zeros((E * C + 1, D), dtype=x2d.dtype, device=dev)
-    buf[dest] = x2d[src_tok]
-    expert_out = expert_apply(buf[:E * C].reshape(E, C, D), p["experts"], act)
-    out_buf = expert_out.reshape(E * C, D)
-    contrib = out_buf[torch.where(keep, dest, torch.zeros_like(dest))]
-    w = (flat_w[order] * keep).to(x2d.dtype)
-    contrib = contrib * w[:, None]  # (T*K, D) in sorted order
-    # combine in the reference's scatter order: each token's choices by
-    # ascending expert id (their order in the stable sort)
+
+def _combine(out_buf: torch.Tensor, route: Route, T: int, K: int
+             ) -> torch.Tensor:
+    """Each token's sum of its kept slots' outputs ``out_buf`` (E*C, D),
+    weighted, in the reference's scatter order: a token's choices by
+    ascending expert id (their order in the stable sort)."""
+    order, gate_ids, dest = route.order, route.gate_ids, route.dest
+    contrib = out_buf[torch.where(route.keep, dest, torch.zeros_like(dest))]
+    contrib = contrib * route.weights[:, None]  # (T*K, D) in sorted order
     slot_of = torch.empty_like(order)
-    slot_of[order] = torch.arange(T * K, device=dev)
+    slot_of[order] = torch.arange(T * K, device=order.device)
     by_id = torch.argsort(gate_ids, dim=-1)  # a token's experts are distinct
     rows = slot_of.reshape(T, K).gather(1, by_id)  # (T, K) sorted positions
     y = contrib[rows[:, 0]]
     for j in range(1, K):
         y = y + contrib[rows[:, j]]
+    return y
 
+
+def _dispatch(x2d: torch.Tensor, route: Route, E: int, C: int
+              ) -> torch.Tensor:
+    """The (E*C, D) expert-major slot buffer of the kept pairs' tokens."""
+    buf = torch.zeros((E * C + 1, x2d.shape[1]), dtype=x2d.dtype,
+                      device=x2d.device)
+    # (T*K, D) token-major: pair i is token order[i] // top_k's
+    top_k = route.gate_ids.shape[1]
+    buf[route.dest] = maybe_shard(x2d[route.order // top_k], "act_td")
+    return buf[:E * C]
+
+
+def _aux(route: Route, E: int) -> tuple:
+    """This batch's load-balance terms: (top-1 share f_e, mean router
+    probability p_e, z-loss, dropped share, kept-slot histogram).  The
+    histograms add ones (exact in any order) and read nothing back to
+    the host."""
+    logits, probs, gate_ids = route.logits, route.probs, route.gate_ids
+    sorted_ids, keep = route.sorted_ids, route.keep
+    T = logits.shape[0]
+    zeros = torch.zeros(E, dtype=torch.float32, device=logits.device)
+    f_e = zeros.index_add(0, gate_ids[:, 0], torch.ones(
+        T, dtype=torch.float32, device=logits.device)) / T
+    kept = keep.to(torch.float32)
+    return (f_e, probs.mean(dim=0),
+            torch.mean(torch.square(torch.logsumexp(logits, dim=-1))),
+            torch.mean(1.0 - kept),
+            # per-expert dispatch histogram of the kept slots: the access
+            # signal the hotness ledger places expert weights by
+            zeros.index_add(0, sorted_ids, kept))
+
+
+def moe_mlp(x2d: torch.Tensor, p: dict, spec: MoESpec, act: str):
+    """Routed expert MLP over flat tokens.  Returns (y (T,D), aux)."""
+    T, D = x2d.shape
+    E, K = spec.n_experts, spec.top_k
+    C = capacity(T, spec)
+    x2d = maybe_shard(x2d, "act_td")
+    route = _route(x2d, p["router"], spec, C)
+    buf = maybe_shard(_dispatch(x2d, route, E, C), "act_ecd_flat")
+    expert_in = maybe_shard(buf.reshape(E, C, D), "act_ecd")
+    expert_out = maybe_shard(expert_apply(expert_in, p["experts"], act),
+                             "act_ecd")
+    out_buf = maybe_shard(expert_out.reshape(E * C, D), "act_ecd_flat")
+    y = maybe_shard(_combine(out_buf, route, T, K), "act_td")
     if spec.n_shared:
         y = y + mlp_apply(x2d, p["shared"], act)
+    f_e, p_e, z, dropped, counts = _aux(route, E)
+    return y, {"lb_loss": E * torch.sum(f_e * p_e), "z_loss": z,
+               "dropped": dropped, "expert_counts": counts}
 
-    # Switch-style load-balance + router z-loss.  The histograms add ones
-    # (exact in any order) and read nothing back to the host.
-    zeros = torch.zeros(E, dtype=torch.float32, device=dev)
-    f_e = zeros.index_add(0, gate_ids[:, 0],
-                          torch.ones(T, dtype=torch.float32, device=dev)) / T
-    p_e = probs.mean(dim=0)
-    kept = keep.to(torch.float32)
-    aux = {
-        "lb_loss": E * torch.sum(f_e * p_e),
-        "z_loss": torch.mean(torch.square(torch.logsumexp(logits, dim=-1))),
-        "dropped": torch.mean(1.0 - kept),
-        # per-expert dispatch histogram of the kept slots: the access
-        # signal the hotness ledger places expert weights by
-        "expert_counts": zeros.index_add(0, sorted_ids, kept),
-    }
-    return y, aux
+
+def moe_mlp_ep(x2d: torch.Tensor, p: dict, spec: MoESpec, act: str, group):
+    """Expert-parallel dispatch over the ``torch.distributed`` process
+    group ``group`` (``None``: the default group): the reference's
+    ``moe_mlp_ep``, whose mesh axis becomes the group's ranks.
+
+    Every rank calls it with the same ``x2d`` (T, D) and the whole tree,
+    as the reference's global view.  Rank ``r`` routes tokens
+    [r T/n, (r+1) T/n) with the reference's per-shard capacity ``C``,
+    sends each expert's slots to the rank that owns it (one
+    ``all_to_all``), runs its experts [r E/n, (r+1) E/n) and sends the
+    outputs back (one ``all_to_all``); ``pmean``/``psum`` of the aux terms
+    are ``all_reduce``s.  The ranks' outputs are then all-gathered, so
+    each returns the whole (T, D), where the reference's stays sharded.
+    Not differentiable (the collectives are torch.distributed's own)."""
+    T, D = x2d.shape
+    E, K = spec.n_experts, spec.top_k
+    n = dist.get_world_size(group)
+    rank = dist.get_rank(group)
+    E_loc, T_loc = E // n, T // n
+    C = int(math.ceil(T_loc * K / E * spec.capacity_factor))
+    C = max(4, -(-C // 4) * 4)
+
+    x_loc = x2d[rank * T_loc:(rank + 1) * T_loc]
+    route = _route(x_loc, p["router"], spec, C)
+    # -> expert ranks: (n, E_loc*C, D), dim 0 the destination rank
+    send = _dispatch(x_loc, route, E, C).reshape(n, E_loc * C, D)
+    recv = torch.empty_like(send)  # dim 0 the source rank
+    dist.all_to_all_single(recv, send.contiguous(), group=group)
+    ein = recv.reshape(n, E_loc, C, D).transpose(0, 1).reshape(
+        E_loc, n * C, D)
+    mine = {k: w[rank * E_loc:(rank + 1) * E_loc]
+            for k, w in p["experts"].items()}
+    eout = expert_apply(ein, mine, act)
+    back = eout.reshape(E_loc, n, C, D).transpose(0, 1).reshape(
+        n, E_loc * C, D).contiguous()
+    got = torch.empty_like(back)
+    dist.all_to_all_single(got, back, group=group)
+    y_loc = _combine(got.reshape(E * C, D), route, T_loc, K)
+    parts = [torch.empty_like(y_loc) for _ in range(n)]
+    dist.all_gather(parts, y_loc.contiguous(), group=group)
+    y = torch.cat(parts)
+
+    f_e, p_e, z, dropped, counts = _aux(route, E)
+    means = torch.cat([f_e, p_e, z[None], dropped[None]])
+    dist.all_reduce(means, group=group)
+    dist.all_reduce(counts, group=group)
+    means = means / n
+    f_e, p_e, z, dropped = means[:E], means[E:2 * E], means[2 * E], \
+        means[2 * E + 1]
+    if spec.n_shared:
+        y = y + mlp_apply(x2d, p["shared"], act)
+    return y, {"lb_loss": E * torch.sum(f_e * p_e), "z_loss": z,
+               "dropped": dropped, "expert_counts": counts}
+
+
+def _ep_group():
+    """The process group of the installed policy's ``_ep``, if it holds
+    one (a launch policy's mesh record does not: one card runs every
+    expert)."""
+    pol = current_policy()
+    ep = pol.get("_ep") if pol else None
+    if dist.is_available() and isinstance(ep, dist.ProcessGroup):
+        return ep
+    return None
 
 
 def routed_mlp(x2d: torch.Tensor, p: dict, spec: MoESpec, act: str):
-    """The single-device dispatch (one card has no expert-parallel mesh)."""
+    """Expert-parallel dispatch when the policy provides a group whose
+    size divides the experts and the tokens; else the single-device
+    dispatch."""
+    group = _ep_group()
+    if group is not None:
+        n = dist.get_world_size(group)
+        if spec.n_experts % n == 0 and x2d.shape[0] % n == 0:
+            return moe_mlp_ep(x2d, p, spec, act, group)
     return moe_mlp(x2d, p, spec, act)
 
 
@@ -220,7 +344,7 @@ def _moe_layer_fwd(cfg: ArchConfig, x: torch.Tensor, lp: dict,
     h = apply_norm(x, lp["ln2"], cfg.norm)
     B, S, D = h.shape
     y, aux = routed_mlp(h.reshape(B * S, D), lp, cfg.moe, cfg.act)
-    return x + y.reshape(B, S, D), aux
+    return x + maybe_shard(y.reshape(B, S, D), "act_btd"), aux
 
 
 # ---------------------------------------------------------------------------

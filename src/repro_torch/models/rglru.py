@@ -36,8 +36,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as dense
 from repro_torch.models.common import (ParamTree, apply_norm, cross_entropy,
                                        dtype_of, embed_init, he,
-                                       loss_and_grad_of, mlp_apply,
-                                       mlp_params, norm_params)
+                                       loss_and_grad_of, maybe_shard,
+                                       mlp_apply, mlp_params, norm_params)
 
 RG_C = 8.0
 CONV_W = 4
@@ -170,7 +170,7 @@ def _rec_layer_fwd(cfg: ArchConfig, x, lp: dict, conv_s, h_s):
     out, _ = rec_block(cfg, h, lp["rec"], conv_s, h_s)
     x = x + out
     h = apply_norm(x, lp["ln2"], cfg.norm)
-    return x + mlp_apply(h, lp["mlp"], cfg.act)
+    return x + maybe_shard(mlp_apply(h, lp["mlp"], cfg.act), "act_btd")
 
 
 def forward(cfg: ArchConfig, params: RglruParams, tokens: torch.Tensor, *,

@@ -11,9 +11,12 @@ the gate.
 Where the reference's ``time_mix`` runs the jnp ``wkv_scan``, the port
 runs the hand-written ``wkv6`` kernel through its wrapper
 (:mod:`repro_torch.kernels.wkv6.ops`); its plain version is the same
-exact recurrence.  ``forward`` and ``decode_step`` take ``wkv=`` to swap
+exact recurrence.  Under a policy with ``_wkv_chunked`` and a length that
+is a multiple of 16, ``time_mix`` takes :func:`wkv_chunked`, the
+reference's intra-chunk matrix form in plain torch, where the reference
+takes its jnp one.  ``forward`` and ``decode_step`` take ``wkv=`` to swap
 in another function of the same signature (a check holds a step against
-the plain version that way); ``None`` means the kernel's wrapper.
+the plain version that way); ``None`` means the choice above.
 
 Serving: ``forward(..., return_states=True, last_only=True)`` is the
 prefill; ``decode_step`` then advances the recurrent state one token at a
@@ -37,8 +40,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.wkv6 import ops as wkv_ops
-from repro_torch.models.common import (cross_entropy, dtype_of, embed_init,
-                                       he, layer_norm, loss_and_grad_of,
+from repro_torch.models.common import (cross_entropy, current_policy,
+                                       dtype_of, embed_init, he, layer_norm,
+                                       loss_and_grad_of, maybe_shard,
                                        records_grad)
 from repro_torch.models.transformer import DenseParams
 
@@ -142,6 +146,56 @@ def _shifted(x: torch.Tensor, shift_in: torch.Tensor) -> torch.Tensor:
     return torch.cat([shift_in[:, None].to(x.dtype), x[:, :-1]], dim=1)
 
 
+def wkv_chunked(r, k, v, w, u, state, *, chunk: int = 16,
+                state_out: Optional[torch.Tensor] = None):
+    """Chunked WKV6: the intra-chunk matrix form and an inter-chunk state
+    carry (the reference's ``wkv_chunked``).  Within a chunk the decay
+    ratios exp(L_{t-1} - L_s), s < t, are all <= 1, so nothing is
+    rescaled by 1/P; the state is read and written once a chunk.
+
+    r, k, v, w: (B,T,H,hd), T a multiple of min(chunk, T); u: (H,hd);
+    state: (B,H,hd,hd).  Returns (y (B,T,H,hd) fp32, final state fp32),
+    the state written into ``state_out`` when one is given."""
+    B, T, H, hd = r.shape
+    C = min(chunk, T)
+    if T % C:
+        raise ValueError(f"T={T} is not a multiple of the chunk {C}")
+    n = T // C
+    f32 = torch.float32
+    rs, ks, vs = (a.to(f32).reshape(B, n, C, H, hd) for a in (r, k, v))
+    logw = torch.log(torch.clamp_min(w.to(f32), 1e-38)).reshape(
+        B, n, C, H, hd)
+    tri = torch.tril(torch.ones((C, C), dtype=torch.bool, device=r.device),
+                     diagonal=-1)  # s < t
+    uf = u.to(f32)
+    S = state.to(f32)
+    ys = []
+    for c in range(n):
+        rc, kc, vc, lw = rs[:, c], ks[:, c], vs[:, c], logw[:, c]
+        lam = torch.cumsum(lw, dim=1)  # L_t (inclusive)
+        lam_prev = lam - lw  # L_{t-1}
+        y = torch.einsum("bthi,bhij->bthj", rc * torch.exp(lam_prev), S)
+        diff = lam_prev[:, :, None] - lam[:, None, :]  # (B,t,s,H,hd), <= 0
+        dmat = torch.where(tri[None, :, :, None, None], torch.exp(diff),
+                           0.0)
+        coeff = torch.einsum("bthi,btshi,bshi->btsh", rc, dmat, kc)
+        y = y + torch.einsum("btsh,bshj->bthj", coeff, vc)
+        diag = torch.einsum("bthi,hi,bthi->bth", rc, uf, kc)
+        ys.append(y + diag[..., None] * vc)
+        lam_c = lam[:, -1:]
+        S = torch.exp(lam_c[:, 0])[..., None] * S + torch.einsum(
+            "bshi,bshj->bhij", kc * torch.exp(lam_c - lam), vc)
+    y = torch.stack(ys, dim=1).reshape(B, T, H, hd)
+    if state_out is not None:
+        return y, state_out.copy_(S)
+    return y, S
+
+
+def _use_chunked() -> bool:
+    pol = current_policy()
+    return bool(pol and pol.get("_wkv_chunked"))
+
+
 def time_mix(cfg: ArchConfig, x: torch.Tensor, tm: dict, state: torch.Tensor,
              shift_in: torch.Tensor, *, wkv: Optional[Wkv] = None,
              state_out: Optional[torch.Tensor] = None):
@@ -159,8 +213,10 @@ def time_mix(cfg: ArchConfig, x: torch.Tensor, tm: dict, state: torch.Tensor,
     v = (mix(tm["mu_v"]) @ tm["Wv"]).reshape(B, T, H, hd)
     g = F.silu(mix(tm["mu_g"]) @ tm["Wg"])
     w = _decay(tm, mix(tm["mu_w"])).reshape(B, T, H, hd)
-    y, new_state = (wkv or wkv_ops.wkv6)(r, k, v, w, tm["u"], state,
-                                        state_out=state_out)
+    if wkv is None:
+        wkv = wkv_chunked if (_use_chunked() and T % 16 == 0) \
+            else wkv_ops.wkv6
+    y, new_state = wkv(r, k, v, w, tm["u"], state, state_out=state_out)
     y = _group_norm(y, tm["gn_scale"], tm["gn_bias"]).reshape(B, T, D)
     out = (y.to(x.dtype) * g) @ tm["Wo"]
     return out, (x[:, -1], new_state)
@@ -185,7 +241,7 @@ def _layer_fwd(cfg: ArchConfig, x, lp: dict, states, *,
     x = x + out
     h = layer_norm(x, lp["ln2"]["scale"], lp["ln2"]["bias"])
     out, cm_shift = channel_mix(h, lp["cm"], cm_shift)
-    return x + out, (tm_shift, cm_shift, wkv_state)
+    return x + maybe_shard(out, "act_btd"), (tm_shift, cm_shift, wkv_state)
 
 
 def init_states(cfg: ArchConfig, batch: int, *, device: DeviceLike = None):
@@ -215,7 +271,7 @@ def forward(cfg: ArchConfig, params: RwkvParams, tokens: torch.Tensor, *,
     each layer in the backward pass.  While autograd records, no state is
     written in place: the new states are stacked from each layer's."""
     B, T = tokens.shape
-    x = _embed(params, tokens)
+    x = maybe_shard(_embed(params, tokens), "act_btd")
     if states is None:
         states = init_states(cfg, B, device=x.device)
     H, hd = _heads(cfg)
@@ -236,7 +292,7 @@ def forward(cfg: ArchConfig, params: RwkvParams, tokens: torch.Tensor, *,
     if last_only:
         x = x[:, -1:]
     x = layer_norm(x, params.final_norm["scale"], params.final_norm["bias"])
-    logits = x @ params.lm_head
+    logits = maybe_shard(x @ params.lm_head, "act_btv")
     if return_states:
         tm_s, cm_s, wkv_s = zip(*new_states)
         return logits, (torch.stack(tm_s), torch.stack(cm_s),

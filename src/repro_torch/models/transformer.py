@@ -29,8 +29,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (ParamTree, apply_norm, dtype_of,
                                        embed_init, cross_entropy,
-                                       loss_and_grad_of, mlp_apply,
-                                       mlp_params, norm_params)
+                                       loss_and_grad_of, maybe_shard,
+                                       mlp_apply, mlp_params, norm_params)
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -166,7 +166,7 @@ def _layer_fwd(cfg: ArchConfig, x: torch.Tensor, lp: dict,
         rope_pct=cfg.rope_pct, use_rope=cfg.rope)
     x = x + h
     h = apply_norm(x, lp["ln2"], cfg.norm)
-    return x + mlp_apply(h, lp["mlp"], cfg.act)
+    return x + maybe_shard(mlp_apply(h, lp["mlp"], cfg.act), "act_btd")
 
 
 def embed_tokens(params, tokens: torch.Tensor,
@@ -179,6 +179,7 @@ def embed_tokens(params, tokens: torch.Tensor,
     if prefix_embeds is not None:
         P = prefix_embeds.shape[1]
         x = torch.cat([prefix_embeds.to(x.dtype), x[:, P:]], dim=1)
+    x = maybe_shard(x, "act_btd")
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     return x, positions
 
@@ -187,7 +188,7 @@ def head_logits(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
     """Final norm, then the (tied or separate) output head."""
     x = apply_norm(x, params.final_norm, cfg.norm)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
-    return x @ head
+    return maybe_shard(x @ head, "act_btv")
 
 
 def forward(cfg: ArchConfig, params: DenseParams, tokens: torch.Tensor, *,

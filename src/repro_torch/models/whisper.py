@@ -27,8 +27,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import transformer as dense
 from repro_torch.models.common import (ParamTree, apply_norm, cross_entropy,
                                        dtype_of, embed_init, he,
-                                       loss_and_grad_of, mlp_apply,
-                                       mlp_params, norm_params)
+                                       loss_and_grad_of, maybe_shard,
+                                       mlp_apply, mlp_params, norm_params)
 
 
 class WhisperParams(ParamTree):
@@ -109,7 +109,7 @@ def encode(cfg: ArchConfig, params: WhisperParams, frames: torch.Tensor, *,
     Returns the encoder's output (B, n_ctx, D)."""
     B, T, _ = frames.shape
     frames = frames.to(params.enc_pos.device)
-    x = frames + params.enc_pos[None, :T]
+    x = maybe_shard(frames + params.enc_pos[None, :T], "act_btd")
     positions = _positions(B, T, x.device)
     body = partial(_enc_layer_fwd, cfg)
     if remat and torch.is_grad_enabled():
@@ -141,13 +141,14 @@ def _dec_layer_fwd(cfg: ArchConfig, x, lp: dict, positions, enc_out,
         head_dim=cfg.resolved_head_dim, positions=positions, use_rope=False,
         kv_override=(k, v, enc_pos))
     h = apply_norm(x, lp["ln2"], cfg.norm)
-    return x + mlp_apply(h, lp["mlp"], cfg.act)
+    return x + maybe_shard(mlp_apply(h, lp["mlp"], cfg.act), "act_btd")
 
 
 def head_logits(cfg: ArchConfig, params: WhisperParams, x: torch.Tensor
                 ) -> torch.Tensor:
     """Final norm, then the head tied to the embedding."""
-    return apply_norm(x, params.final_norm, cfg.norm) @ params.embed.T
+    return maybe_shard(apply_norm(x, params.final_norm, cfg.norm)
+                       @ params.embed.T, "act_btv")
 
 
 def forward(cfg: ArchConfig, params: WhisperParams, tokens: torch.Tensor, *,
@@ -159,6 +160,7 @@ def forward(cfg: ArchConfig, params: WhisperParams, tokens: torch.Tensor, *,
     B, S = tokens.shape
     x = params.embed[tokens.to(params.embed.device).long()] \
         + params.dec_pos[None, :S]
+    x = maybe_shard(x, "act_btd")
     positions = _positions(B, S, x.device)
     enc_pos = _positions(B, enc_out.shape[1], x.device)
     body = partial(_dec_layer_fwd, cfg)

@@ -211,8 +211,12 @@ def test_moe_mlp_matches_reference(T, cf, n_shared):
 
 
 def test_routed_mlp_is_the_single_device_dispatch():
-    """One card has no expert-parallel mesh: ``routed_mlp`` is
-    ``moe_mlp``, and the reference's ``moe_mlp_ep`` is not ported."""
+    """Without a process group in the policy's ``_ep`` (none installed,
+    or a launch policy's mesh record: one card runs every expert),
+    ``routed_mlp`` is ``moe_mlp``; the expert-parallel ``moe_mlp_ep``
+    takes a group (``tests/test_torch_launch.py``)."""
+    from repro_torch.launch import mesh as t_mesh, shardings as t_sh
+    from repro_torch.models.common import activation_sharding
     cfg, tcfg = _tiny()
     _, params = _params(cfg, tcfg)
     x = torch.from_numpy(np.random.default_rng(8).normal(
@@ -222,7 +226,12 @@ def test_routed_mlp_is_the_single_device_dispatch():
     b, aux_b = t_moe.moe_mlp(x, lp, tcfg.moe, tcfg.act)
     assert torch.equal(a, b)
     assert torch.equal(aux_a["expert_counts"], aux_b["expert_counts"])
-    assert hasattr(r_moe, "moe_mlp_ep") and not hasattr(t_moe, "moe_mlp_ep")
+    policy = t_sh.activation_policy(t_mesh.make_mesh((2, 1), ("data",
+                                                             "model")))
+    with activation_sharding(policy):
+        c, _ = t_moe.routed_mlp(x, lp, tcfg.moe, tcfg.act)
+    assert torch.equal(a, c)
+    assert hasattr(r_moe, "moe_mlp_ep") and hasattr(t_moe, "moe_mlp_ep")
 
 
 def test_capacity_follows_the_reference():

@@ -246,6 +246,9 @@ def test_import_loads_neither_jax_nor_the_reference():
         "import repro_torch.kernels.decode_attention.ops\n"
         "import repro_torch.kernels.wkv6.ops, repro_torch.models.rwkv\n"
         "import repro_torch.serving.engine, repro_torch.launch.serve\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.steps\n"
+        "import repro_torch.launch.hlo_analysis, repro_torch.launch.mesh\n"
+        "import repro_torch.benchmarks.roofline, repro_torch.models.moe\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "print(json.dumps(bad))\n")

@@ -2,7 +2,7 @@
 """Where the time of the two full-size gates' loops goes, on the card.
 
     python3 tools/gate_profile.py [--epochs N] [--runs N] [--no-profile]
-                                  [--only actuation|serving]
+                                  [--only actuation|serving] [--spread]
 
 Prints the card's name and power limit, then:
 
@@ -19,12 +19,17 @@ Prints the card's name and power limit, then:
   same way, then ``--runs`` whole runs of each mode in turns (sync,
   overlap, overlap, sync, ...) with their goodput, stall and wall time.
 
-``--no-profile`` prints the ratios alone (to set two trees side by side
+``--spread`` adds, for each whole serving run, what spreads runs of one
+mode (:class:`StepClock`).  ``--no-profile`` prints the ratios alone (to set two trees side by side
 in one call: run the script from each tree's root in turn).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import cProfile
+import io
+import pstats
 import subprocess
 import sys
 import time
@@ -123,7 +128,8 @@ def split_donated_epoch(n_pages, idxs, vals, device, epochs: int) -> None:
         f"{min(upd):.4f}")
 
 
-def serving(runs: int, profile: bool = True) -> None:
+def serving(runs: int, profile: bool = True,
+            spread: bool = False) -> None:
     import torch
     from chip_smoke import log, profile_steps
     from repro_torch.benchmarks import bench_serving as bs
@@ -181,13 +187,92 @@ def serving(runs: int, profile: bool = True) -> None:
     for rep in range(runs):
         for mode in (("sync", "overlap") if rep % 2 == 0
                      else ("overlap", "sync")):
-            out, _ = bs._run_mode(mode, cfg, params, p, prompts, arrive,
-                                  device)
+            with StepClock(ServingEngine) if spread else \
+                    contextlib.nullcontext() as clock:
+                out, _ = bs._run_mode(mode, cfg, params, p, prompts,
+                                      arrive, device)
             log(f"gate/serving/{mode}/run{rep},goodput_tok_s="
                 f"{out['goodput_tok_s']:.1f},wall_s={out['wall_s']:.4f},"
                 f"stall_s={out['migration_stall_s']:.6f},"
                 f"hidden_s={out['migration_hidden_s']:.6f},"
                 f"moved_bytes={out['moved_bytes']}")
+            if spread:
+                log(f"gate/serving/{mode}/run{rep}/spread,{clock.summary()}")
+
+
+class StepClock:
+    """Host time of every ``ServingEngine.step`` in a run (host clock,
+    no synchronise: what the host spends issuing a step; each step under
+    cProfile, whose cost is in the times), the slowest step's functions by
+    cumulative time, garbage collections and their pauses, and the
+    pinned allocator's growth."""
+
+    def __init__(self, engine_cls):
+        self.cls, self.steps, self.gc = engine_cls, [], []
+
+    def __enter__(self):
+        import gc
+        import torch
+        self.orig = self.cls.step
+        clock = self
+
+        def step(eng, *a, **kw):
+            prof = cProfile.Profile()
+            t0 = time.perf_counter()
+            prof.enable()
+            try:
+                return clock.orig(eng, *a, **kw)
+            finally:
+                prof.disable()
+                ms = (time.perf_counter() - t0) * 1e3
+                if not clock.steps or ms > max(clock.steps):
+                    clock.slowest = (len(clock.steps), prof)
+                clock.steps.append(ms)
+        self.cls.step = step
+        self.gc_t0 = {}
+
+        def on_gc(phase, info):
+            if phase == "start":
+                self.gc_t0[info["generation"]] = time.perf_counter()
+            else:
+                self.gc.append((info["generation"], (time.perf_counter()
+                                - self.gc_t0[info["generation"]]) * 1e3))
+        self.on_gc = on_gc
+        gc.callbacks.append(on_gc)
+        self.pinned0 = torch.cuda.host_memory_stats().get(
+            "allocated_bytes.current", 0) if hasattr(
+            torch.cuda, "host_memory_stats") else 0
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+        self.cls.step = self.orig
+        gc.callbacks.remove(self.on_gc)
+        return False
+
+    def summary(self) -> str:
+        import numpy as np
+        import torch
+        s = np.asarray(self.steps)
+        pinned = torch.cuda.host_memory_stats().get(
+            "allocated_bytes.current", 0) if hasattr(
+            torch.cuda, "host_memory_stats") else 0
+        g2 = [ms for gen, ms in self.gc if gen == 2]
+        at, prof = self.slowest
+        out = io.StringIO()
+        pstats.Stats(prof, stream=out).sort_stats("cumulative").print_stats(14)
+        slow = ";".join(" ".join(line.split()) for line in
+                        out.getvalue().splitlines()
+                        if line.strip() and line.strip()[0].isdigit())
+        return (f"slowest_step={at},slowest_top={slow}\n"
+                f"steps={s.size},step_ms_sum={s.sum():.2f},"
+                f"step_ms_p50={np.median(s):.3f},"
+                f"step_ms_p90={np.percentile(s, 90):.3f},"
+                f"step_ms_max={s.max():.3f},"
+                f"steps_over_2x_p50={int((s > 2 * np.median(s)).sum())},"
+                f"gc={len(self.gc)},gc_ms={sum(ms for _, ms in self.gc):.2f},"
+                f"gc2={len(g2)},gc2_ms={sum(g2):.2f},"
+                f"pinned_growth_bytes={pinned - self.pinned0}")
 
 
 def main(argv=None) -> int:
@@ -196,6 +281,10 @@ def main(argv=None) -> int:
     ap.add_argument("--epochs", type=int, default=40)
     ap.add_argument("--runs", type=int, default=4)
     ap.add_argument("--no-profile", action="store_true")
+    ap.add_argument("--spread", action="store_true",
+                    help="per run of the serving loop: each engine step's "
+                         "host ms, garbage collections and their pauses, "
+                         "the pinned allocator's growth")
     ap.add_argument("--only", choices=("actuation", "serving"),
                     help="run one of the two gates' loops")
     args = ap.parse_args(argv)
@@ -210,7 +299,7 @@ def main(argv=None) -> int:
     if args.only != "serving":
         actuation(args.epochs, not args.no_profile)
     if args.only != "actuation":
-        serving(args.runs, not args.no_profile)
+        serving(args.runs, not args.no_profile, args.spread)
     return 0
 
 
