@@ -62,7 +62,7 @@ from repro_torch.core.donation import FULL_SHARD_COPIES, donated_update
 from repro_torch.core.ledger import TierLedger
 from repro_torch.core.mover import LANE_BULK, Descriptor
 from repro_torch.core.policy import MemPolicy, largest_remainder_split
-from repro_torch.core.telemetry import GLOBAL_TELEMETRY, Telemetry
+from repro_torch.core.telemetry import GLOBAL_TELEMETRY, Telemetry, span
 from repro_torch.device import (DeviceLike, host_to_device, resolve_backend,
                                 resolve_device, shard_storage)
 from repro_torch.kernels.embedding_reduce import ops as er_ops, ref as er_ref
@@ -713,19 +713,21 @@ class InterleavedTensor:
         instead runs once per shard, with rows owned by another device
         weighted 0 (the table-form kernel skips them without a row load),
         and the partials are summed in shard order.  Both give the same
-        bits."""
-        indices = torch.as_tensor(indices).to(self.device)
-        if weights is not None:
-            weights = torch.as_tensor(weights).to(self.device)
-        if reduce_fn is None:
-            return er_ops.bag_reduce_routed(self.parts, self.page_device,
-                                            self.page_local, self.page_rows,
-                                            indices, weights)
-        if weights is None:
-            weights = torch.ones(indices.shape, dtype=self.parts[0].dtype,
-                                 device=self.device)
-        dev, local = self._route(indices)
-        return er_ref.reduce_shards(self.parts, dev, local, weights, reduce_fn)
+        bits.  The call is the span ``repro.interleave.bag_reduce``."""
+        with span("repro.interleave.bag_reduce"):
+            indices = torch.as_tensor(indices).to(self.device)
+            if weights is not None:
+                weights = torch.as_tensor(weights).to(self.device)
+            if reduce_fn is None:
+                return er_ops.bag_reduce_routed(
+                    self.parts, self.page_device, self.page_local,
+                    self.page_rows, indices, weights)
+            if weights is None:
+                weights = torch.ones(indices.shape, dtype=self.parts[0].dtype,
+                                     device=self.device)
+            dev, local = self._route(indices)
+            return er_ref.reduce_shards(self.parts, dev, local, weights,
+                                        reduce_fn)
 
     # -- migration (TPP-style page moves; used by elastic re-planning) -------
     def migrate_pages(self, page_ids: np.ndarray, to_slow: bool) -> "InterleavedTensor":
@@ -1115,28 +1117,6 @@ class InterleavedTensor:
         """Materialize the logical array on ``self.device`` (tests /
         checkpointing)."""
         return self.gather_rows(torch.arange(self.rows))
-
-    # -- accounting -----------------------------------------------------------
-    def traffic_bytes(self, idx) -> dict[str, int]:
-        """Bytes touched per device for an index batch (host-side)."""
-        page = _as_numpy(idx).ravel() // self.page_rows
-        dev_map, _ = self._host_map()
-        dev = dev_map[np.minimum(page, self.n_pages - 1)]
-        out = {}
-        for i, name in enumerate(self.device_names):
-            out[name] = int((dev == i).sum()) * self.row_bytes
-        # two-device compatibility keys
-        out.setdefault("fast", out.get(self.device_names[0], 0))
-        out.setdefault("slow", sum(
-            int((dev == i).sum()) * self.row_bytes
-            for i in range(1, len(self.parts))))
-        return out
-
-    def record_gather(self, idx, seconds: float,
-                      telemetry: Telemetry = GLOBAL_TELEMETRY) -> None:
-        t = self.traffic_bytes(idx)
-        for i, name in enumerate(self.device_names):
-            telemetry.record_move(name, "engine", t.get(name, 0), seconds)
 
 
 def _route_name(names: Sequence[str], d: int) -> str:

@@ -9,14 +9,27 @@ benchmarks and the planner's feedback loop see real traffic, and so a
 controller (§7) reads: it closes fixed observation windows over the
 cumulative route counters and reports per-epoch deltas plus EWMA
 bandwidths, writer concurrency, and fast-tier pressure gauges.
+
+:class:`span` marks a layer's work for a profiler: where one records
+(``torch.profiler.profile``), a span is a ``record_function`` marker of
+its name, on the clock of the device operations launched inside it; where
+none records, it costs one check of the profiler's flag.  Python's
+collections are marked the same way (``repro.gc.gen0``/``gen1``/``gen2``)
+by a ``gc.callbacks`` hook registered when this module is imported.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import threading
 import time
 from collections import defaultdict
 from typing import Optional
+
+import torch
+
+#: whether a profiler records on the calling thread
+_profiling = torch._C._autograd._profiler_enabled
 
 
 @dataclasses.dataclass
@@ -244,13 +257,51 @@ class EpochWindow:
         return sample
 
 
-class Timer:
-    """Context-manager wall timer (host clock; callers synchronize first)."""
+class span:
+    """``with span(name):`` marks the block as ``name`` in a profiler's
+    trace.  A marker is built only when a profiler records as the block
+    is entered; otherwise the span is one check of the profiler's flag."""
 
-    def __enter__(self):
-        self.t0 = time.perf_counter()
+    __slots__ = ("name", "_marker")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._marker = None
+
+    def __enter__(self) -> "span":
+        if _profiling():
+            self._marker = torch.profiler.record_function(self.name)
+            self._marker.__enter__()
         return self
 
-    def __exit__(self, *exc):
-        self.seconds = time.perf_counter() - self.t0
+    def __exit__(self, *exc) -> bool:
+        marker, self._marker = self._marker, None
+        if marker is not None:
+            marker.__exit__(*exc)
         return False
+
+
+#: the marker of the collection running on each thread
+_gc_open = threading.local()
+
+
+def _gc_marker(phase: str, info: dict, _on=_profiling) -> None:
+    """``gc.callbacks`` hook: a ``repro.gc.gen<N>`` span around each
+    collection that starts while a profiler records.  (The flag's check is
+    bound as a default: collections run while the interpreter tears its
+    modules down, too.)"""
+    if phase == "start":
+        if _on():
+            marker = torch.profiler.record_function(
+                f"repro.gc.gen{info['generation']}")
+            marker.__enter__()
+            _gc_open.marker = marker
+        return
+    marker = getattr(_gc_open, "marker", None)
+    if marker is not None:
+        _gc_open.marker = None
+        marker.__exit__(None, None, None)
+
+
+if _gc_marker not in gc.callbacks:
+    gc.callbacks.append(_gc_marker)

@@ -6,14 +6,15 @@ the card, which the ``stream_copy`` kernel reads and writes in place — as
 flat fp32 pages of :data:`PAGE_ELEMS`.  Each step streams every page
 through HBM, a run of :data:`WRITEBACK_RUN_PAGES` consecutive pages at a
 time: a load is one ``stream_copy_segments`` launch of the run's master,
-mu and nu pages (pinned -> HBM, into one of two staging slots, through
-the mover's ``double_buffer``), the update runs in place in the slot in
-plain torch, and the run goes back in one launch (HBM -> pinned,
-straight into the leaf's pinned views) on a side stream, beside the next
-run's load.  The offloaded parameter is reassembled on the card from the
-updated master pages; the host never reads a page.  (The reference loads
-a page at a time; one launch a page left the card idle behind the host,
-and the update is element-wise, so a run gives the same values.)
+mu and nu pages (pinned -> HBM, into one of two staging slots), queued
+on the calling thread's stream just before the previous run's update;
+the update runs in place in the slot in plain torch, and the run goes
+back in one launch (HBM -> pinned, straight into the leaf's pinned
+views) on a side stream.  The offloaded parameter is reassembled on the
+card from the updated master pages; the host never reads a page.  (The
+reference loads a page at a time; one launch a page left the card idle
+behind the host, and the update is element-wise, so a run gives the same
+values.)
 
 A leaf's state is one host allocation (:func:`repro_torch.device.
 host_block`) holding master, mu and nu (or the int8 moments and their
@@ -30,6 +31,11 @@ frees what the move reads; a reclaimed leaf's master is copied back into
 its parameter (which already holds it cast); ``offload_bytes`` is a
 Python int.
 
+A step is the span ``repro.offload.step``; inside it each run's load,
+update and writeback are the spans ``repro.offload.load``,
+``repro.offload.update`` and ``repro.offload.writeback``
+(:class:`~repro_torch.core.telemetry.span`).
+
 Access pattern justification (classifier): optimizer state is touched
 once per step, sequentially, in page granularity, with zero dependent
 chaining — the definition of a bandwidth-bound, slow-tier-tolerant
@@ -37,15 +43,14 @@ buffer (§6.1).
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.core.mover import BulkMover, Descriptor, Segments, double_buffer
-from repro_torch.core.telemetry import GLOBAL_TELEMETRY
+from repro_torch.core.mover import BulkMover, Descriptor, Segments
+from repro_torch.core.telemetry import GLOBAL_TELEMETRY, span
 from repro_torch.device import host_block
 from repro_torch.kernels.stream_copy import ops as stream_ops
 from repro_torch.optim import adamw
@@ -491,63 +496,66 @@ class TieredAdamW:
     # -- step ---------------------------------------------------------------
     @torch.no_grad()
     def step(self, params, grads, state) -> tuple[object, dict, dict]:
-        grads = adamw.by_name(grads)
-        gnorm = adamw.global_norm(grads)
-        scale = adamw.clip_scale(gnorm, self.cfg.grad_clip)
-        step = state["step"] + 1
-        lr, c1, c2 = adamw.coefficients(self.cfg, step)
-        slow_keys = state["slow"]
-        leaves = named_leaves(params)
+        with span("repro.offload.step"):
+            grads = adamw.by_name(grads)
+            gnorm = adamw.global_norm(grads)
+            scale = adamw.clip_scale(gnorm, self.cfg.grad_clip)
+            step = state["step"] + 1
+            lr, c1, c2 = adamw.coefficients(self.cfg, step)
+            slow_keys = state["slow"]
+            leaves = named_leaves(params)
 
-        # --- fast subset: the fused update, in place ------------------------
-        for key, p in leaves:
-            if key in slow_keys:
-                continue
-            mu, nu = state["fast"]["mu"][key], state["fast"]["nu"][key]
-            for pc, gc, mc, nc in adamw.chunks(p, grads[key].contiguous(),
-                                               mu, nu):
-                new_p, new_mu, new_nu = adamw.adam_math(
-                    self.cfg, pc.to(torch.float32),
-                    gc.to(torch.float32) * scale, mc, nc, lr, c1, c2)
-                mc.copy_(new_mu)
-                nc.copy_(new_nu)
-                pc.copy_(new_p.to(pc.dtype))
+            # --- fast subset: the fused update, in place --------------------
+            for key, p in leaves:
+                if key in slow_keys:
+                    continue
+                mu, nu = state["fast"]["mu"][key], state["fast"]["nu"][key]
+                for pc, gc, mc, nc in adamw.chunks(p, grads[key].contiguous(),
+                                                   mu, nu):
+                    new_p, new_mu, new_nu = adamw.adam_math(
+                        self.cfg, pc.to(torch.float32),
+                        gc.to(torch.float32) * scale, mc, nc, lr, c1, c2)
+                    mc.copy_(new_mu)
+                    nc.copy_(new_nu)
+                    pc.copy_(new_p.to(pc.dtype))
 
-        # --- slow subset: paged streaming update ---------------------------
-        bytes_moved = 0
-        dev_bytes: dict[str, int] = {}
-        for key, p in leaves:
-            if key not in slow_keys:
-                continue
-            leaf = state["slow"][key]
-            self._page_leaf(leaf, p, grads[key], scale, lr, c1, c2)
-            page_bytes = PAGE_ELEMS * 4 * 6 * leaf.n_pages
-            bytes_moved += page_bytes
-            dst = self._leaf_dst(leaf)
-            dev_bytes[dst] = dev_bytes.get(dst, 0) + page_bytes
+            # --- slow subset: paged streaming update -----------------------
+            bytes_moved = 0
+            dev_bytes: dict[str, int] = {}
+            for key, p in leaves:
+                if key not in slow_keys:
+                    continue
+                leaf = state["slow"][key]
+                self._page_leaf(leaf, p, grads[key], scale, lr, c1, c2)
+                page_bytes = PAGE_ELEMS * 4 * 6 * leaf.n_pages
+                bytes_moved += page_bytes
+                dst = self._leaf_dst(leaf)
+                dev_bytes[dst] = dev_bytes.get(dst, 0) + page_bytes
 
-        if self.mover is None and bytes_moved:
-            # No movement engine: still surface the paging traffic per
-            # device — half the bytes stream device-ward, half back.
-            fast = self._fast_name()
-            for dev, b in dev_bytes.items():
-                self.telemetry.record_move(dev, fast, b // 2, 0.0,
-                                           source=self.source)
-                self.telemetry.record_move(fast, dev, b // 2, 0.0,
-                                           source=self.source)
-        new_state = {"step": step, "fast": state["fast"],
-                     "slow": state["slow"]}
-        metrics = {"grad_norm": gnorm, "lr": lr, "offload_bytes": bytes_moved}
-        return params, new_state, metrics
+            if self.mover is None and bytes_moved:
+                # No movement engine: still surface the paging traffic per
+                # device — half the bytes stream device-ward, half back.
+                fast = self._fast_name()
+                for dev, b in dev_bytes.items():
+                    self.telemetry.record_move(dev, fast, b // 2, 0.0,
+                                               source=self.source)
+                    self.telemetry.record_move(fast, dev, b // 2, 0.0,
+                                               source=self.source)
+            new_state = {"step": step, "fast": state["fast"],
+                         "slow": state["slow"]}
+            metrics = {"grad_norm": gnorm, "lr": lr,
+                       "offload_bytes": bytes_moved}
+            return params, new_state, metrics
 
     def _page_leaf(self, leaf: OffloadedLeaf, p: torch.Tensor,
                    g: torch.Tensor, scale, lr, c1, c2) -> None:
         """Stream every page of ``leaf`` through HBM, a run of
         :data:`WRITEBACK_RUN_PAGES` pages at a time: load the run into one
-        of two staging slots (double buffered, one launch), update it in
-        the slot, write the new parameter's slice from the new master,
-        and write the run back (one launch, on the mover's side stream or
-        the optimizer's own, beside the next run's load)."""
+        of two staging slots (one launch, queued on the calling thread
+        just before the previous run's update, after the slot's last
+        writeback), update it in the slot, write the new parameter's slice
+        from the new master, and write the run back (one launch, on the
+        mover's side stream or the optimizer's own)."""
         dev = p.device
         card = dev.type == "cuda"
         stream = torch.cuda.current_stream(dev) if card else None
@@ -574,52 +582,56 @@ class TieredAdamW:
                 rows.append(_seg(0, src, 0, dst, k * b))
             return np.array(rows, np.int64)
 
-        def load(r: int) -> int:
-            with (torch.cuda.stream(stream) if card
-                  else contextlib.nullcontext()):
+        def load(r: int) -> None:
+            with span("repro.offload.load"):
                 if done[r % 2] is not None:  # the slot's last writeback
                     stream.wait_event(done[r % 2])
                 stream_ops.stream_copy_segments([block], [slots[r % 2]],
                                                 segs_of(r, False))
-            return r
 
-        for r in double_buffer(range(n_runs), load):
+        load(0)
+        for r in range(n_runs):
+            if r + 1 < n_runs:
+                load(r + 1)
             slot = slots[r % 2]
             first = r * cap
             n = min(cap, leaf.n_pages - first) * P
 
             def part(a: int, dtype, count: int) -> torch.Tensor:
                 return _view(slot, run_off[a], count * dtype.itemsize, dtype)
-            master = part(0, torch.float32, n)
-            if leaf.quantized:
-                qmu, qnu = part(1, torch.int8, n), part(2, torch.int8, n)
-                smu = part(3, torch.float32, n // QBLOCK)
-                snu = part(4, torch.float32, n // QBLOCK)
-                mu = _dq_moments(qmu, smu)
-                nu = _dq_moments(qnu, snu, sqrt_domain=True)
-            else:
-                mu, nu = part(1, torch.float32, n), part(2, torch.float32, n)
-            lo, hi = first * P, min(first * P + n, leaf.size)
-            gp = g_flat[lo:hi]
-            if hi - lo < n:
-                gp = torch.cat([gp, gp.new_zeros(n - (hi - lo))])
-            ms2, mu2, nu2 = adamw.adam_math(
-                self.cfg, master, gp.to(torch.float32) * scale, mu, nu,
-                lr, c1, c2)
-            if leaf.quantized:
-                for (q, sc), out in ((_q_moments(mu2), (qmu, smu)),
-                                     (_q_moments(nu2, sqrt_domain=True),
-                                      (qnu, snu))):
-                    out[0].copy_(q)
-                    out[1].copy_(sc)
-            else:
-                mu.copy_(mu2)
-                nu.copy_(nu2)
-            master.copy_(ms2)
-            p_flat[lo:hi].copy_(ms2[:hi - lo].to(p.dtype))
-            payload = Segments((slot,), (block,), segs_of(r, True),
-                               n // P * billed)
-            done[r % 2] = self._write_back(payload, leaf, dev)
+            with span("repro.offload.update"):
+                master = part(0, torch.float32, n)
+                if leaf.quantized:
+                    qmu, qnu = part(1, torch.int8, n), part(2, torch.int8, n)
+                    smu = part(3, torch.float32, n // QBLOCK)
+                    snu = part(4, torch.float32, n // QBLOCK)
+                    mu = _dq_moments(qmu, smu)
+                    nu = _dq_moments(qnu, snu, sqrt_domain=True)
+                else:
+                    mu = part(1, torch.float32, n)
+                    nu = part(2, torch.float32, n)
+                lo, hi = first * P, min(first * P + n, leaf.size)
+                gp = g_flat[lo:hi]
+                if hi - lo < n:
+                    gp = torch.cat([gp, gp.new_zeros(n - (hi - lo))])
+                ms2, mu2, nu2 = adamw.adam_math(
+                    self.cfg, master, gp.to(torch.float32) * scale, mu, nu,
+                    lr, c1, c2)
+                if leaf.quantized:
+                    for (q, sc), out in ((_q_moments(mu2), (qmu, smu)),
+                                         (_q_moments(nu2, sqrt_domain=True),
+                                          (qnu, snu))):
+                        out[0].copy_(q)
+                        out[1].copy_(sc)
+                else:
+                    mu.copy_(mu2)
+                    nu.copy_(nu2)
+                master.copy_(ms2)
+                p_flat[lo:hi].copy_(ms2[:hi - lo].to(p.dtype))
+            with span("repro.offload.writeback"):
+                payload = Segments((slot,), (block,), segs_of(r, True),
+                                   n // P * billed)
+                done[r % 2] = self._write_back(payload, leaf, dev)
         # the next reader of the pages (the next step's loads) and of the
         # staging slots waits for the writebacks
         for ev in done:
