@@ -231,6 +231,18 @@ wrong result or a missing kernel launch:
    dominant one), ``mfu`` (model FLOPs over the time at 989 TFLOP/s) and
    ``x_bound`` (the time over the largest term); (a) and (b) print the
    dry run's ``peak_per_device`` beside ``max_memory_allocated``.
+17. the routed form's staged path as the DLRM benchmark cells call it:
+   ``InterleavedTensor.bag_reduce`` on their table (2^27 x 64 fp32, one
+   page in ten in HBM, a 28.8 GiB pinned shard) with batches of 8,192 x
+   80 int32 rows, uniform (the uniform cell) and with 8.2% of the lookups
+   pinned (the Zipf cell's share).  Counts reset just before and read just
+   after four calls: six launches and one staged call each.  The sums are
+   held bit for bit against the one-launch kernel and the plain routed
+   version (pinned shard copied to the card); the staged path's time
+   beside the one-launch kernel's, the plain version's and a bound of
+   the pinned rows at the SM read rate of a sequential pinned range
+   (``stream_copy``, measured here) against the rest at HBM's rate; the
+   pinned lookups per 64 KiB of the pinned span.
 ``--full-gates`` then runs ``bench_hotpaths`` (4096 pages, the
 repartition timed the reference's one-pass way) and ``bench_serving``
 at full size, with their gates.
@@ -1079,7 +1091,139 @@ def sweep_fractions(it, batches, want, landed: float) -> dict:
     return bounds
 
 
-DA_SWEEP = ((2, 8, 2, 32, 128), (1, 4, 4, 64, 256), (3, 8, 1, 16, 64),
+#: phase 17: the DLRM benchmark cells' table (cxlbench/configs/
+#: dlrm-merci-hbm10.json: 2^27 rows of 64 fp32, one page in ten in HBM)
+#: and batch (8,192 bags of 80 lookups)
+CELL_ROWS_LOG2, CELL_BAGS, CELL_HBM_PAGES = 27, 8192, (1, 9)
+#: the Zipf cell's share of lookups in pinned memory (1 - its
+#: hbm_lookup_share, 0.918 in the benchmark's ledger)
+SPARSE_PINNED_SHARE = 0.082
+
+
+def staged_batch(it, pinned_share: float | None, gen):
+    """A cell-shaped batch of int32 global rows (as the benchmark draws
+    them): uniform over the table when ``pinned_share`` is None, else that
+    share of the lookups uniform over the pinned pages and the rest over
+    the HBM pages."""
+    import torch
+    dev = it.page_device.device
+    shape = (CELL_BAGS, LOOKUPS)
+    if pinned_share is None:
+        return torch.randint(0, it.n_pages * PAGE_ROWS, shape, generator=gen,
+                             device=dev, dtype=torch.int32)
+    pages = [torch.nonzero(it.page_device == d).flatten() for d in (0, 1)]
+    pinned = torch.rand(shape, generator=gen, device=dev) < pinned_share
+    pick = [p[torch.randint(0, p.numel(), shape, generator=gen, device=dev)]
+            for p in pages]
+    page = torch.where(pinned, pick[1], pick[0])
+    within = torch.randint(0, PAGE_ROWS, shape, generator=gen, device=dev)
+    return (page * PAGE_ROWS + within).to(torch.int32)
+
+
+def phase_staged() -> dict:
+    """Phase 17: the routed form's staged path as the DLRM cells call it,
+    through ``InterleavedTensor.bag_reduce`` on the cells' table (28.8 GiB
+    pinned shard) and batch shape."""
+    import torch
+    from repro_torch.core import InterleavedTensor, MemPolicy, h100_topology
+    from repro_torch.kernels.embedding_reduce import kernel, ops, ref
+    from repro_torch.kernels.stream_copy import ops as sc_ops
+    dev = torch.device("cuda")
+    if hasattr(torch._C, "_host_emptyCache"):
+        torch._C._host_emptyCache()  # pinned blocks cached by earlier phases
+    topo = h100_topology()
+    gen = torch.Generator(device=dev).manual_seed(17)
+    t0 = time.perf_counter()
+    table = torch.randn((1 << CELL_ROWS_LOG2, DIM), generator=gen,
+                        device=dev)
+    it = InterleavedTensor.from_array(
+        table, MemPolicy.weighted((topo.fast.name, topo.slow.name),
+                                  CELL_HBM_PAGES), PAGE_ROWS, device=dev)
+    del table
+    torch.cuda.synchronize()
+    fast_part, slow_part = it.parts
+    assert fast_part.is_cuda and slow_part.is_pinned()
+    row_bytes = DIM * 4
+    span = slow_part.shape[0] * row_bytes
+    log(f"phase17/table,rows={1 << CELL_ROWS_LOG2},pinned_bytes={span},"
+        f"hbm_bytes={fast_part.numel() * 4},"
+        f"build_s={time.perf_counter() - t0:.2f}")
+    # the plain routed version over both shards on the card
+    slow_card = slow_part.to(dev)
+    pd, pl = it.page_device, it.page_local
+    n = CELL_BAGS * LOOKUPS
+    assert kernel.stages([False, True], n, 4)
+    # the SM read rate of a sequential pinned range (stream_copy)
+    seq_rows = n
+    seq_dst = torch.empty((seq_rows, DIM), device=dev)
+    seq_src = slow_part[slow_part.shape[0] // 2:][:seq_rows]
+    seq_ms = time_ms(lambda: sc_ops.stream_copy(seq_src, out=seq_dst),
+                     iters=10, queue_ahead=True)
+    seq_rate = seq_rows * row_bytes / (seq_ms * 1e-3)
+    log(f"phase17/pinned_sequential,bytes={seq_rows * row_bytes},"
+        f"ms={seq_ms:.4f},GBps={seq_rate / 1e9:.2f}")
+    del seq_dst
+    out = {}
+    for label, share in (("uniform", None), ("sparse", SPARSE_PINNED_SHARE)):
+        batches = [staged_batch(it, share, gen) for _ in range(4)]
+        n_pin = int((pd[batches[0].long() // PAGE_ROWS] == 1).sum())
+        want = [ref.bag_reduce_routed((fast_part, slow_card), pd, pl,
+                                      PAGE_ROWS, b) for b in batches]
+        ops.LAUNCHES.reset()
+        ops.STAGED.reset()
+        got = [it.bag_reduce(b) for b in batches]
+        torch.cuda.synchronize()
+        launches, staged = ops.LAUNCHES.reset(), ops.STAGED.reset()
+        assert staged == len(batches), (label, staged)
+        assert launches == kernel.STAGED_KERNELS * len(batches), launches
+        threshold = kernel.STAGE_MIN_LOOKUPS
+        kernel.STAGE_MIN_LOOKUPS = kernel.MAX_ROWS
+        try:
+            one = [it.bag_reduce(b) for b in batches]
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES.reset() == len(batches)
+            assert ops.STAGED.reset() == 0
+            one_ms = time_ms(lambda: it.bag_reduce(batches[0]), iters=10,
+                             queue_ahead=True)
+        finally:
+            kernel.STAGE_MIN_LOOKUPS = threshold
+        for g_, o_, w_ in zip(got, one, want):
+            assert torch.equal(g_, o_) and torch.equal(g_, w_), label
+        ms = time_ms(lambda: it.bag_reduce(batches[0]), iters=10,
+                     queue_ahead=True)
+        p_ms = time_ms(lambda: ref.bag_reduce_routed(
+            (fast_part, slow_card), pd, pl, PAGE_ROWS, batches[0]), iters=3,
+            warmup=1, queue_ahead=True)
+        # pinned rows at the sequential SM rate against HBM rows, int32
+        # indices, one int8 and one int64 map entry a lookup and the output
+        # at HBM's rate, whichever is longer
+        pcie = n_pin * row_bytes
+        hbm = ((n - n_pin) * row_bytes + n * (4 + 1 + 8)
+               + CELL_BAGS * row_bytes)
+        bound = max(pcie / seq_rate, hbm / HBM_BW) * 1e3
+        per_64k = n_pin / (span / 65536)
+        log(f"phase17/staged/{label},lookups={n},pinned_lookups={n_pin},"
+            f"pinned_lookups_per_64KiB={per_64k:.4f},ms={ms:.4f},"
+            f"one_launch_ms={one_ms:.4f},plain_ms={p_ms:.4f},"
+            f"bound_ms={bound:.4f},bound_share={bound / ms:.3f},"
+            f"pinned_GBps={pcie / (ms * 1e-3) / 1e9:.2f},"
+            f"one_launch_pinned_GBps={pcie / (one_ms * 1e-3) / 1e9:.2f},"
+            f"launches_per_call={launches // len(batches)},"
+            f"staged_calls={staged},bit_equal_one_launch=1,bit_equal_plain=1")
+        out[label] = {"ms": ms, "one_launch_ms": one_ms, "plain_ms": p_ms,
+                      "bound_ms": bound, "launches": launches,
+                      "staged_calls": staged,
+                      "pinned_lookups_per_64KiB": per_64k}
+        del batches, want, got, one
+    del it, fast_part, slow_part, slow_card
+    gc.collect()
+    torch.cuda.empty_cache()
+    if hasattr(torch._C, "_host_emptyCache"):
+        torch._C._host_emptyCache()
+    return out
+
+
+DA_SWEEP =((2, 8, 2, 32, 128), (1, 4, 4, 64, 256), (3, 8, 1, 16, 64),
             (2, 16, 16, 32, 128))  # tests/test_kernels.py:76-78
 SERVE_B, SERVE_T, SERVE_VALID, SERVE_PAGE = 16, 4096, 3072, 64
 SERVE_H, SERVE_K, SERVE_HD = 24, 2, 128  # starcoder2-3b
@@ -4606,6 +4750,7 @@ def main(argv=None) -> int:
     fam = timed(14, phase_families, stats, args.profile)
     elastic = timed(15, phase_elastic, stats)
     steps = timed(16, phase_steps)
+    staged = timed(17, phase_staged)
     if args.full_gates:
         timed("_full_gates", phase_full_gates)
     log(f"run/seconds,{time.perf_counter() - t_run:.2f}")
@@ -4620,7 +4765,9 @@ def main(argv=None) -> int:
          "library_ms": er["library_ms"],
          "launches_by_path": {
              "dlrm_walk": res["launches"]["embedding_reduce"],
-             "semantic_dlrm": sem["launches"]["embedding_reduce"]},
+             "semantic_dlrm": sem["launches"]["embedding_reduce"],
+             "staged_cell_shape": staged["uniform"]["launches"]},
+         "staged_path": staged,
          "table_form": {k: er[k] for k in ("table_ms", "table_bound_ms",
                                            "table_library_ms")},
          "slow_0.10": {"routed_ms": er["routed_f010_ms"],

@@ -9,8 +9,10 @@ once, §4/Table 1).  The tensor holds one page shard per device plus a
 page->device map; reads and writes are routed to the owning device,
 and embedding-bag reduction (the paper's DLRM §5.2 workload) runs the
 routed ``embedding_reduce`` kernel, which routes every lookup through
-the page maps and reads every shard (both tiers at once) in one launch —
-bit-identical to a per-shard reduction summed in shard order.
+the page maps and reads every shard (both tiers at once) in one launch
+(a large call with a pinned shard first copies its pinned rows to HBM in
+address order) — bit-identical to a per-shard reduction summed in shard
+order.
 
 Hot paths (the Caption loop's actuation and access costs):
 
@@ -709,7 +711,9 @@ class InterleavedTensor:
         its plain version for shards on the CPU): every lookup is routed
         through the page maps and read once, from its owning shard, with
         the fast and the slow tier read in the same launch; at most four
-        shards.  ``reduce_fn(table, indices, weights) -> (batch, feature)``
+        shards.  A call of many lookups with a pinned shard takes the
+        kernel's staged path: its pinned rows are copied to HBM in address
+        order first, with the same sums.  ``reduce_fn(table, indices, weights) -> (batch, feature)``
         instead runs once per shard, with rows owned by another device
         weighted 0 (the table-form kernel skips them without a row load),
         and the partials are summed in shard order.  Both give the same

@@ -54,6 +54,37 @@
 //  * D or alignments that are not multiples of 16 bytes take a scalar
 //    path: one element per thread, plain loads ER_U lookups at a time.
 //
+// The staged path of the routed form (`repro_bag_reduce_staged`), for
+// calls with a pinned shard and many lookups (the wrapper decides).
+// Random rows spread over a large pinned shard are read from it at a
+// fraction of the rate the same SM read path reaches on a sequential
+// range: each row lands in another region of the host address space, and
+// its translation is fetched anew (on an H100, the DLRM cell's 28.8 GiB
+// shard gave 7.4 GB/s at random and 15.2 in address order; PERF.md).  So
+// the rows are read in address order, into HBM, before the bag sums, in
+// six kernels on the stream and with no host synchronisation (the first
+// zeroes the region counters):
+//  1. plan: route each lookup as the prologue does; a lookup of a pinned
+//     shard with a weight that is not 0 (after rounding) counts itself in
+//     its region's counter (regions of 2^region_log2 bytes of the pinned
+//     shards, in shard order) and keeps its rank there;
+//  2. scan: the counters become each region's first slot (one block);
+//  3. scatter: each staged lookup's slot is its region's first slot plus
+//     its rank, and the slot's source address is written in slot order;
+//  4. gather: the rows are copied in slot order, so in region order, one
+//     16-byte .ca load a thread, into a contiguous HBM staging buffer;
+//  5. reduce: the bag kernel above, whose staged lookups read their slot
+//     from HBM (.cg) instead of their row over PCIe.  The values are bit
+//     copies and the sum is unchanged, so the results equal the one-launch
+//     kernel's bit for bit.
+// Order within a region is the atomics' (free); a row looked up twice is
+// read twice.  The caller passes one workspace from its allocator: the
+// counters, the keys, the slots, the source addresses and a row of
+// staging per lookup (staged_bytes).  What bounds it: the gather's pinned
+// reads, a translation per row where the rows are sparser than about one
+// per 64 KiB (order then saves nothing); the plan, scan, scatter and
+// reduce move a few bytes a lookup in HBM.
+//
 // ER_THREADS, ER_S and ER_U may be set at build time;
 // tools/embedding_reduce_probe.py sweeps them.
 #include <cuda_runtime.h>
@@ -76,6 +107,12 @@ constexpr int MAX_SHARDS = 4;
 constexpr int MAX_LANES = 32;  // threads per bag and column tile
 constexpr int PRO = 4;         // prologue lookups per thread per round
 constexpr int STAGE = 2048;    // lookups staged per block (9 bytes each)
+// s_dev holds the shard in its low bits, and STAGED for a lookup whose row
+// the staged path copied to HBM (s_row is then its staging slot)
+constexpr uint8_t SHARD_BITS = 0x7f, STAGED = 0x80;
+// the staged path's plan and scatter blocks, its scan block, its gather
+constexpr int PLAN_THREADS = 256, SCAN_THREADS = 1024, SCAN_ITEMS = 8;
+constexpr int GATHER_THREADS = 256;
 
 static_assert(ER_THREADS % MAX_LANES == 0 && ER_THREADS <= 1024, "block size");
 static_assert(ER_S >= 2 && ER_U >= 1, "ring shape");
@@ -93,6 +130,46 @@ struct Route {
   int64_t page_rows, n_pages;
   int shift;  // log2(page_rows) when it is a power of two, else -1
 };
+
+// The staged path's buffers, carved from the caller's workspace.
+struct Plan {
+  int32_t* count;     // [nb + 1] lookups a region, then its first slot;
+                      // count[nb]: the staged lookups
+  int64_t* key;       // [n] (shard << 32 | row) of a staged lookup
+  const char** src;   // [n] a slot's row address, in slot order
+  int32_t* slot;      // [n] a lookup's rank in its region, then its slot;
+                      // -1: not staged
+  char* rows;         // [n * row_bytes] staging
+  int64_t nb;         // regions
+  int64_t region0[MAX_SHARDS];  // a pinned shard's first region
+  int region_log2;
+};
+
+// a[d] for a runtime d, with constant indices only (no dynamic parameter
+// reads, which would copy the array to local memory)
+template <typename V>
+__device__ __forceinline__ V pick(const V (&a)[MAX_SHARDS], int d) {
+  V v = a[0];
+#pragma unroll
+  for (int s = 1; s < MAX_SHARDS; ++s)
+    if (d == s) v = a[s];
+  return v;
+}
+
+// the page of global row i (clamped into the map) and i's offset in it,
+// taken from the unclamped page: floor division (C++ `/` truncates toward
+// zero), as InterleavedTensor._route
+__device__ __forceinline__ int64_t page_of(const Route& rt, int64_t i, int64_t& off) {
+  int64_t q;
+  if (rt.shift >= 0) {
+    q = i >> rt.shift;  // arithmetic shift: floor
+  } else {
+    q = i / rt.page_rows;
+    if (q * rt.page_rows > i) q -= 1;
+  }
+  off = i - q * rt.page_rows;
+  return q < 0 ? 0 : (q >= rt.n_pages ? rt.n_pages - 1 : q);
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -153,13 +230,16 @@ __device__ __forceinline__ float load_weight(const void* w, int wcode, int64_t i
 
 // T: table dtype; VEC: elements per thread (16 bytes, or 1 for the scalar
 // path); I: index dtype; ROUTED: route through the page maps over sh.n
-// shards (else one table, global rows).
-template <typename T, int VEC, typename I, bool ROUTED>
-__global__ void __launch_bounds__(ER_THREADS)
-bag_kernel(Shards sh, Route rt, const I* __restrict__ idx, const void* __restrict__ w,
-           int wcode, T* __restrict__ out, int64_t D, int64_t B, int64_t K, int lanes,
-           int kc) {
+// shards (else one table, global rows); STAGED_ROWS: the staged path's
+// reduce, whose lookups with a slot in stage_slot read their row there.
+template <typename T, int VEC, typename I, bool ROUTED, bool STAGED_ROWS>
+__device__ __forceinline__ void
+bag_body(Shards sh, Route rt, const I* __restrict__ idx,
+         const void* __restrict__ w, int wcode, T* __restrict__ out, int64_t D, int64_t B,
+         int64_t K, int lanes, int kc, const int32_t* __restrict__ stage_slot,
+         const char* __restrict__ stage) {
   constexpr bool RING = VEC * sizeof(T) == 16;
+  static_assert(RING || !STAGED_ROWS, "the staged path reads 16-byte rows");
   constexpr int NS = ROUTED ? MAX_SHARDS : 1;
   constexpr int RING_BYTES = RING ? ER_THREADS * ER_S * ER_U * 16 : 0;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -211,6 +291,7 @@ bag_kernel(Shards sh, Route rt, const I* __restrict__ idx, const void* __restric
       int64_t iv[PRO];
       float wv[PRO];
       bool ok[PRO];
+      int32_t sl[PRO];  // staging slot (STAGED_ROWS), else -1
 #pragma unroll
       for (int u = 0; u < PRO; ++u) {
         const int e = e0 + u * ER_THREADS + tid;
@@ -220,6 +301,7 @@ bag_kernel(Shards sh, Route rt, const I* __restrict__ idx, const void* __restric
         const int64_t g = b * K + k0 + (e - j * kcur);
         iv[u] = ok[u] ? (int64_t)idx[g] : 0;
         wv[u] = ok[u] ? load_weight(w, wcode, g) : 0.0f;
+        if constexpr (STAGED_ROWS) sl[u] = ok[u] ? stage_slot[g] : -1;
       }
       int64_t page[PRO], off[PRO];
       int dv[PRO];
@@ -227,17 +309,7 @@ bag_kernel(Shards sh, Route rt, const I* __restrict__ idx, const void* __restric
 #pragma unroll
       for (int u = 0; u < PRO; ++u) {
         if constexpr (ROUTED) {
-          // floor division (C++ `/` truncates toward zero); offset from
-          // the unclamped page, then the page clamped into the map
-          int64_t q;
-          if (rt.shift >= 0) {
-            q = iv[u] >> rt.shift;  // arithmetic shift: floor
-          } else {
-            q = iv[u] / rt.page_rows;
-            if (q * rt.page_rows > iv[u]) q -= 1;
-          }
-          off[u] = iv[u] - q * rt.page_rows;
-          page[u] = q < 0 ? 0 : (q >= rt.n_pages ? rt.n_pages - 1 : q);
+          page[u] = page_of(rt, iv[u], off[u]);
         } else {
           page[u] = 0;
           off[u] = iv[u];
@@ -266,6 +338,12 @@ bag_kernel(Shards sh, Route rt, const I* __restrict__ idx, const void* __restric
           s_row[e] = (int32_t)r;
           s_w[e] = owned ? round_to<T>(wv[u]) : 0.0f;
           s_dev[e] = (uint8_t)(owned ? d : 0);
+          if constexpr (STAGED_ROWS) {
+            if (owned && sl[u] >= 0) {
+              s_row[e] = sl[u];
+              s_dev[e] = (uint8_t)(d | STAGED);
+            }
+          }
         }
       }
     }
@@ -277,7 +355,7 @@ bag_kernel(Shards sh, Route rt, const I* __restrict__ idx, const void* __restric
     auto add = [&](int k, const T (&v)[VEC]) {
       const float wk = s_w[sb + k];
       if (wk == 0.0f) return;
-      const int d = s_dev[sb + k];
+      const int d = STAGED_ROWS ? s_dev[sb + k] & SHARD_BITS : s_dev[sb + k];
 #pragma unroll
       for (int j = 0; j < VEC; ++j) {
         const float p = __fmul_rn(to_f32(v[j]), wk);
@@ -294,11 +372,14 @@ bag_kernel(Shards sh, Route rt, const I* __restrict__ idx, const void* __restric
           for (int u = 0; u < ER_U; ++u) {
             const int k = g * ER_U + u;
             if (k < kcur) {
-              const int d = s_dev[sb + k];
+              const int dv = s_dev[sb + k];
+              const int d = STAGED_ROWS ? dv & SHARD_BITS : dv;
+              const bool staged = STAGED_ROWS && (dv & STAGED) != 0;
               const bool load = active && s_w[sb + k] != 0.0f;
-              const char* src = s_base[d] + (int64_t)s_row[sb + k] * row_bytes + c * 16;
+              const char* src = (staged ? stage : s_base[d]) +
+                                (int64_t)s_row[sb + k] * row_bytes + c * 16;
               cp_async16(dst + u * ER_THREADS * 16, load ? src : s_base[0], load,
-                         s_host[d] != 0);
+                         !staged && s_host[d] != 0);
             }
           }
         }
@@ -365,10 +446,33 @@ bag_kernel(Shards sh, Route rt, const I* __restrict__ idx, const void* __restric
 }
 
 template <typename T, int VEC, typename I, bool ROUTED>
+__global__ void __launch_bounds__(ER_THREADS)
+bag_kernel(Shards sh, Route rt, const I* __restrict__ idx, const void* __restrict__ w,
+           int wcode, T* __restrict__ out, int64_t D, int64_t B, int64_t K, int lanes,
+           int kc) {
+  bag_body<T, VEC, I, ROUTED, false>(sh, rt, idx, w, wcode, out, D, B, K, lanes, kc,
+                                     nullptr, nullptr);
+}
+
+// The staged path's reduce (step 5 in the header): the routed bag kernel
+// whose staged lookups read their row from its staging slot in HBM.
+template <typename T, typename I>
+__global__ void __launch_bounds__(ER_THREADS)
+bag_staged_kernel(Shards sh, Route rt, const I* __restrict__ idx, const void* __restrict__ w,
+                  int wcode, T* __restrict__ out, int64_t D, int64_t B, int64_t K, int lanes,
+                  int kc, const int32_t* __restrict__ stage_slot,
+                  const char* __restrict__ stage) {
+  bag_body<T, 16 / sizeof(T), I, true, true>(sh, rt, idx, w, wcode, out, D, B, K, lanes,
+                                             kc, stage_slot, stage);
+}
+
+// The bag kernel (or, with plan, the staged path's reduce) on the stream.
+template <typename T, int VEC, typename I, bool ROUTED>
 int launch(const Shards& sh, const Route& rt, const void* idx, const void* w, int wcode,
-           void* out, int64_t D, int64_t B, int64_t K, cudaStream_t stream) {
-  void (*kernel)(Shards, Route, const I*, const void*, int, T*, int64_t, int64_t, int64_t,
-                 int, int) = bag_kernel<T, VEC, I, ROUTED>;
+           void* out, int64_t D, int64_t B, int64_t K, cudaStream_t stream,
+           const Plan* plan = nullptr) {
+  const void* kernel = plan ? reinterpret_cast<const void*>(bag_staged_kernel<T, I>)
+                            : reinterpret_cast<const void*>(bag_kernel<T, VEC, I, ROUTED>);
   const int64_t n_chunks = D / VEC;
   int lanes = 1;
   while (lanes < n_chunks && lanes < MAX_LANES) lanes <<= 1;
@@ -378,18 +482,23 @@ int launch(const Shards& sh, const Route& rt, const void* idx, const void* w, in
   kc = kc < 1 ? 1 : kc;
   const size_t ring = VEC * sizeof(T) == 16 ? (size_t)ER_THREADS * ER_S * ER_U * 16 : 0;
   const size_t smem = ring + (size_t)bags * kc * (sizeof(int32_t) + sizeof(float) + 1);
-  static size_t allowed = 48 * 1024;  // per instantiation
-  if (smem > allowed) {
+  static size_t allowed[2] = {48 * 1024, 48 * 1024};  // per kernel
+  if (smem > allowed[plan != nullptr]) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    allowed = smem;
+    allowed[plan != nullptr] = smem;
   }
   const dim3 grid((unsigned)((B + bags - 1) / bags),
                   (unsigned)((n_chunks + lanes - 1) / lanes));
-  bag_kernel<T, VEC, I, ROUTED><<<grid, ER_THREADS, smem, stream>>>(
-      sh, rt, static_cast<const I*>(idx), w, wcode, static_cast<T*>(out), D, B, K,
-      lanes, (int)kc);
+  if (plan)
+    bag_staged_kernel<T, I><<<grid, ER_THREADS, smem, stream>>>(
+        sh, rt, static_cast<const I*>(idx), w, wcode, static_cast<T*>(out), D, B, K,
+        lanes, (int)kc, plan->slot, plan->rows);
+  else
+    bag_kernel<T, VEC, I, ROUTED><<<grid, ER_THREADS, smem, stream>>>(
+        sh, rt, static_cast<const I*>(idx), w, wcode, static_cast<T*>(out), D, B, K,
+        lanes, (int)kc);
   return (int)cudaGetLastError();
 }
 
@@ -413,6 +522,164 @@ int dispatch(const Shards& sh, const Route& rt, const void* idx, int idx64, cons
   }
 #undef ER_IDX
   return (int)cudaErrorInvalidValue;
+}
+
+Shards make_shards(const void* const* parts, const int64_t* rows, const int* host,
+                   int n_shards) {
+  Shards sh = {};
+  for (int i = 0; i < n_shards; ++i) {
+    sh.base[i] = static_cast<const char*>(parts[i]);
+    sh.rows[i] = rows[i];
+    sh.host[i] = host[i];
+  }
+  for (int i = n_shards; i < MAX_SHARDS; ++i) sh.base[i] = sh.base[0];
+  sh.n = n_shards;
+  return sh;
+}
+
+Route make_route(const int8_t* page_device, const int64_t* page_local, int64_t page_rows,
+                 int64_t n_pages) {
+  Route rt = {page_device, page_local, page_rows, n_pages, -1};
+  if ((page_rows & (page_rows - 1)) == 0) {
+    rt.shift = 0;
+    while ((int64_t(1) << rt.shift) < page_rows) ++rt.shift;
+  }
+  return rt;
+}
+
+// -- the staged path --------------------------------------------------------
+
+// 1. plan: a lookup of a pinned shard whose weight is not 0 (after
+// rounding to T) counts itself in its region and keeps its rank there.
+template <typename T, typename I>
+__global__ void __launch_bounds__(PLAN_THREADS)
+plan_kernel(Shards sh, Route rt, const I* __restrict__ idx, const void* __restrict__ w,
+            int wcode, int64_t n, int64_t row_bytes, Plan plan) {
+  const int64_t g = (int64_t)blockIdx.x * PLAN_THREADS + threadIdx.x;
+  if (g >= n) return;
+  int64_t off;
+  const int64_t page = page_of(rt, (int64_t)idx[g], off);
+  const int d = rt.page_device[page];
+  int32_t rank = -1;
+  if (d >= 0 && d < MAX_SHARDS) {
+    const int64_t rows = d < sh.n ? pick(sh.rows, d) : 0;
+    if (pick(sh.host, d) && rows > 0 &&
+        round_to<T>(load_weight(w, wcode, g)) != 0.0f) {
+      int64_t r = rt.page_local[page] * rt.page_rows + off;
+      r = r < 0 ? 0 : (r >= rows ? rows - 1 : r);
+      const int64_t region = pick(plan.region0, d) + ((r * row_bytes) >> plan.region_log2);
+      rank = atomicAdd(&plan.count[region], 1);
+      plan.key[g] = (int64_t)d << 32 | r;
+    }
+  }
+  plan.slot[g] = rank;
+}
+
+// 2. scan: count[i] becomes the exclusive prefix sum, count[nb] the total;
+// one block walks the counters in tiles of SCAN_THREADS x SCAN_ITEMS.
+__global__ void __launch_bounds__(SCAN_THREADS) scan_kernel(int32_t* count, int64_t nb) {
+  __shared__ int32_t warp_sum[SCAN_THREADS / 32];
+  __shared__ int32_t carry;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) carry = 0;
+  __syncthreads();
+  for (int64_t t0 = 0; t0 < nb; t0 += SCAN_THREADS * SCAN_ITEMS) {
+    const int64_t i0 = t0 + (int64_t)tid * SCAN_ITEMS;
+    int32_t v[SCAN_ITEMS], own = 0;
+#pragma unroll
+    for (int j = 0; j < SCAN_ITEMS; ++j) {
+      v[j] = i0 + j < nb ? count[i0 + j] : 0;
+      own += v[j];
+    }
+    int32_t x = own;  // inclusive scan within the warp
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int32_t y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane == 31) warp_sum[warp] = x;
+    __syncthreads();
+    if (warp == 0) {
+      int32_t y = warp_sum[lane];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int32_t z = __shfl_up_sync(0xffffffffu, y, o);
+        if (lane >= o) y += z;
+      }
+      warp_sum[lane] = y;
+    }
+    __syncthreads();
+    int32_t run = carry + (warp > 0 ? warp_sum[warp - 1] : 0) + x - own;
+#pragma unroll
+    for (int j = 0; j < SCAN_ITEMS; ++j) {
+      if (i0 + j < nb) count[i0 + j] = run;
+      run += v[j];
+    }
+    __syncthreads();  // carry and warp_sum are read
+    if (tid == SCAN_THREADS - 1) carry = run;
+    __syncthreads();
+  }
+  if (tid == 0) count[nb] = carry;
+}
+
+// 3. scatter: a staged lookup's slot, and its row's address at the slot.
+__global__ void __launch_bounds__(PLAN_THREADS)
+scatter_kernel(Shards sh, int64_t n, int64_t row_bytes, Plan plan) {
+  const int64_t g = (int64_t)blockIdx.x * PLAN_THREADS + threadIdx.x;
+  if (g >= n) return;
+  const int32_t rank = plan.slot[g];
+  if (rank < 0) return;
+  const int64_t key = plan.key[g];
+  const int d = (int)(key >> 32);
+  const int64_t r = key & 0xffffffff;
+  const int64_t region = pick(plan.region0, d) + ((r * row_bytes) >> plan.region_log2);
+  const int32_t at = plan.count[region] + rank;
+  plan.slot[g] = at;
+  plan.src[at] = pick(sh.base, d) + r * row_bytes;
+}
+
+// 4. gather: the staged rows in slot order, one 16-byte .ca load a thread
+// (deeper loads a thread read the cell's 28.8 GiB shard slower:
+// tools/embedding_reduce_probe.py --pinned-order).
+__global__ void __launch_bounds__(GATHER_THREADS)
+gather_kernel(const char* const* __restrict__ src, const int32_t* __restrict__ total,
+              uint4* __restrict__ rows, int64_t row_vecs) {
+  const int64_t i = (int64_t)blockIdx.x * GATHER_THREADS + threadIdx.x;
+  if (i >= (int64_t)*total * row_vecs) return;
+  const int64_t at = i / row_vecs;
+  rows[i] = __ldca(reinterpret_cast<const uint4*>(src[at]) + (i - at * row_vecs));
+}
+
+__global__ void clear_kernel(int32_t* a, int64_t n) {
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x)
+    a[i] = 0;
+}
+
+int64_t align16(int64_t x) { return (x + 15) & ~int64_t(15); }
+
+// the workspace of n lookups over nb regions (kernel.staged_bytes)
+int64_t staged_bytes(int64_t nb, int64_t n, int64_t row_bytes) {
+  return align16(4 * (nb + 1)) + 16 * n + align16(4 * n) + n * row_bytes;
+}
+
+template <typename T, typename I>
+int staged(const Shards& sh, const Route& rt, const void* idx, const void* w, int wcode,
+           void* out, int64_t D, int64_t B, int64_t K, Plan& plan, cudaStream_t s) {
+  const int64_t n = B * K, row_bytes = D * (int64_t)sizeof(T);
+  const unsigned blocks = (unsigned)((n + PLAN_THREADS - 1) / PLAN_THREADS);
+  clear_kernel<<<(unsigned)((plan.nb + 1 + 1023) / 1024), 1024, 0, s>>>(plan.count, plan.nb + 1);
+  plan_kernel<T, I><<<blocks, PLAN_THREADS, 0, s>>>(sh, rt, static_cast<const I*>(idx), w,
+                                                    wcode, n, row_bytes, plan);
+  scan_kernel<<<1, SCAN_THREADS, 0, s>>>(plan.count, plan.nb);
+  scatter_kernel<<<blocks, PLAN_THREADS, 0, s>>>(sh, n, row_bytes, plan);
+  const int64_t row_vecs = row_bytes / 16;
+  gather_kernel<<<(unsigned)((n * row_vecs + GATHER_THREADS - 1) / GATHER_THREADS),
+                  GATHER_THREADS, 0, s>>>(plan.src, plan.count + plan.nb,
+                                          reinterpret_cast<uint4*>(plan.rows), row_vecs);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  return launch<T, 16 / sizeof(T), I, true>(sh, rt, idx, w, wcode, out, D, B, K, s, &plan);
 }
 
 }  // namespace
@@ -452,19 +719,56 @@ extern "C" int repro_bag_reduce_routed(const void* const* parts, const int64_t* 
                                        void* stream) {
   if (n_shards < 1 || n_shards > MAX_SHARDS || page_rows < 1 || n_pages < 1)
     return (int)cudaErrorInvalidValue;
-  Shards sh = {};
+  return dispatch<true>(make_shards(parts, rows, host, n_shards),
+                        make_route(page_device, page_local, page_rows, n_pages), idx, idx64,
+                        w, wcode, out, D, B, K, dtype, vec, static_cast<cudaStream_t>(stream));
+}
+
+// The staged path of the routed form (see the header): the routed form's
+// arguments (16-byte rows and pointers only: vec > 1), then the
+// workspace, work_bytes of it, at least staged_bytes of the regions of
+// 2^region_log2 bytes of the pinned shards and B * K lookups.  Six kernels
+// on the stream; no host synchronisation and no allocation.
+extern "C" int repro_bag_reduce_staged(const void* const* parts, const int64_t* rows,
+                                       const int* host, int n_shards,
+                                       const int8_t* page_device,
+                                       const int64_t* page_local, int64_t page_rows,
+                                       int64_t n_pages, const void* idx, int idx64,
+                                       const void* w, int wcode, void* out, int64_t D,
+                                       int64_t B, int64_t K, int dtype, void* work,
+                                       int64_t work_bytes, int region_log2, void* stream) {
+  if (n_shards < 1 || n_shards > MAX_SHARDS || page_rows < 1 || n_pages < 1 ||
+      wcode < -1 || wcode > 1 || dtype < 0 || dtype > 1 || region_log2 < 4 ||
+      region_log2 > 62 || B < 1 || K < 1 || B * K >= (int64_t(1) << 31))
+    return (int)cudaErrorInvalidValue;
+  const int64_t item = dtype == 0 ? 4 : 2, row_bytes = D * item;
+  if (D < 1 || row_bytes % 16 != 0) return (int)cudaErrorInvalidValue;
+  const Shards sh = make_shards(parts, rows, host, n_shards);
+  Plan plan = {};
   for (int i = 0; i < n_shards; ++i) {
-    sh.base[i] = static_cast<const char*>(parts[i]);
-    sh.rows[i] = rows[i];
-    sh.host[i] = host[i];
+    plan.region0[i] = plan.nb;
+    if (host[i] && rows[i] > 0)
+      plan.nb += ((rows[i] * row_bytes - 1) >> region_log2) + 1;
   }
-  for (int i = n_shards; i < MAX_SHARDS; ++i) sh.base[i] = sh.base[0];
-  sh.n = n_shards;
-  Route rt = {page_device, page_local, page_rows, n_pages, -1};
-  if ((page_rows & (page_rows - 1)) == 0) {
-    rt.shift = 0;
-    while ((int64_t(1) << rt.shift) < page_rows) ++rt.shift;
-  }
-  return dispatch<true>(sh, rt, idx, idx64, w, wcode, out, D, B, K, dtype, vec,
-                        static_cast<cudaStream_t>(stream));
+  const int64_t n = B * K;
+  if (plan.nb < 1 || work_bytes < staged_bytes(plan.nb, n, row_bytes))
+    return (int)cudaErrorInvalidValue;
+  char* p = static_cast<char*>(work);
+  plan.count = reinterpret_cast<int32_t*>(p);
+  p += align16(4 * (plan.nb + 1));
+  plan.key = reinterpret_cast<int64_t*>(p);
+  p += 8 * n;
+  plan.src = reinterpret_cast<const char**>(p);
+  p += 8 * n;
+  plan.slot = reinterpret_cast<int32_t*>(p);
+  p += align16(4 * n);
+  plan.rows = p;
+  plan.region_log2 = region_log2;
+  const Route rt = make_route(page_device, page_local, page_rows, n_pages);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return idx64 ? staged<float, int64_t>(sh, rt, idx, w, wcode, out, D, B, K, plan, s)
+                 : staged<float, int32_t>(sh, rt, idx, w, wcode, out, D, B, K, plan, s);
+  return idx64 ? staged<__nv_bfloat16, int64_t>(sh, rt, idx, w, wcode, out, D, B, K, plan, s)
+               : staged<__nv_bfloat16, int32_t>(sh, rt, idx, w, wcode, out, D, B, K, plan, s);
 }

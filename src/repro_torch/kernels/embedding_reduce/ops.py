@@ -4,7 +4,9 @@ routed form over an ``InterleavedTensor``'s page shards.
 On the card (any CUDA or pinned host tensor among the arguments) each
 launches the CUDA kernel or raises; the plain version runs only when
 every tensor lies in pageable host memory.  ``LAUNCHES`` counts kernel
-launches of both forms and nothing else."""
+launches of both forms and nothing else; ``STAGED`` counts routed calls
+that took the staged path (``kernel.stages``), each of
+``kernel.STAGED_KERNELS`` launches."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -16,6 +18,8 @@ from repro_torch.kernels.embedding_reduce import kernel, ref
 
 #: kernel launches (never bumped by the plain version).
 LAUNCHES = common.LaunchCounter()
+#: routed calls that took the staged path
+STAGED = common.LaunchCounter()
 MAX_SHARDS = kernel.MAX_SHARDS
 
 
@@ -37,7 +41,8 @@ def bag_reduce_routed(parts: Sequence[torch.Tensor], page_device: torch.Tensor,
     """Global (B, K) rows over at most ``MAX_SHARDS`` page shards ->
     (B, D) weighted sums, equal to the per-shard path
     (``ref.reduce_shards`` over table-form reductions) bit for bit.  One
-    kernel launch on the card, the plain version on the CPU; more shards
+    kernel launch on the card, or the staged path's kernels for a large
+    call with a pinned shard; the plain version on the CPU; more shards
     raise on both."""
     if not 1 <= len(parts) <= MAX_SHARDS:
         raise ValueError(f"the routed reduction takes 1 to {MAX_SHARDS} "
@@ -48,7 +53,9 @@ def bag_reduce_routed(parts: Sequence[torch.Tensor], page_device: torch.Tensor,
     if device is None:
         return ref.bag_reduce_routed(parts, page_device, page_local,
                                      page_rows, indices, weights)
-    out = kernel.bag_reduce_routed(parts, page_device, page_local, page_rows,
-                                   indices, weights, device)
-    LAUNCHES.bump()
+    out, launched = kernel.bag_reduce_routed(
+        parts, page_device, page_local, page_rows, indices, weights, device)
+    LAUNCHES.bump(launched)
+    if launched > 1:
+        STAGED.bump()
     return out

@@ -15,6 +15,7 @@ from repro.core.telemetry import Telemetry as RTel  # noqa: E402
 from repro.kernels.embedding_reduce import ops as r_er  # noqa: E402
 from repro.kernels.stream_copy import ops as r_sc  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
+from repro_torch.kernels.embedding_reduce import kernel as t_er_kernel  # noqa: E402
 from repro_torch.kernels.embedding_reduce import ops as t_er, ref as t_er_ref  # noqa: E402
 from repro_torch.kernels.stream_copy import ops as t_sc, ref as t_sc_ref  # noqa: E402
 
@@ -228,6 +229,26 @@ def test_bag_reduce_routed_refusals():
     assert t_er.LAUNCHES.count == 0  # the plain version counts nothing
 
 
+def test_bag_reduce_staged_path_engages_by_input():
+    """The staged path: a shard with rows in pinned memory, at least
+    ``STAGE_MIN_LOOKUPS`` lookups and 16-byte rows; its workspace is a
+    counter a 2^REGION_LOG2-byte region of the pinned shards (here host
+    tensors, as pinned ones are not CUDA tensors) and 16 + 4 + a row's
+    bytes a lookup."""
+    n = t_er_kernel.STAGE_MIN_LOOKUPS
+    assert t_er_kernel.stages([False, True], n, 4)
+    assert t_er_kernel.stages([True, True, True], n + 1, 8)
+    assert not t_er_kernel.stages([False, True], n - 1, 4)
+    assert not t_er_kernel.stages([False, False], n, 4)
+    assert not t_er_kernel.stages([False, True], n, 1)
+    region_rows = (1 << t_er_kernel.REGION_LOG2) // 256
+    parts = [torch.empty((3 * region_rows + 1, 64)), torch.empty((0, 64)),
+             torch.empty((region_rows, 64))]
+    regions = 4 + 1
+    assert t_er_kernel.staged_bytes(parts, 1000, 256) == (
+        -(-4 * (regions + 1) // 16) * 16 + 16 * 1000 + 4000 + 1000 * 256)
+
+
 # -- stream_copy: plain version vs the Pallas ops --------------------------------
 @pytest.mark.parametrize("shape,block", [((256, 64), 64), ((512, 128), 256),
                                          ((128, 32), 128)])
@@ -420,6 +441,168 @@ def test_bag_reduce_routed_kernel_equals_per_shard_kernels(cuda, dtype, slow):
             want = it.bag_reduce(ix, weights, reduce_fn=t_er.embedding_reduce)
             torch.cuda.synchronize()
             assert torch.equal(got, want), (slow, weights is None, ix.dtype)
+
+
+def _staged_shards(cuda, layout: str, dtype, page_rows: int, g):
+    """Shards after ``layout`` ("H": HBM, "P": pinned), 20-40 pages each,
+    their pages interleaved at random over the global rows; the page maps
+    on the card."""
+    parts, dev, local = [], [], []
+    for i, kind in enumerate(layout):
+        pages = int(torch.randint(20, 41, (1,), generator=g))
+        rows = torch.randn((pages * page_rows, 64), generator=g).to(dtype)
+        parts.append(rows.to(cuda) if kind == "H" else rows.pin_memory())
+        dev += [i] * pages
+        local += list(range(pages))
+    order = torch.randperm(len(dev), generator=g)
+    pd = torch.tensor(dev, dtype=torch.int8)[order].to(cuda)
+    pl = torch.tensor(local, dtype=torch.int64)[order].to(cuda)
+    return parts, pd, pl
+
+
+#: (layout, table dtype, index dtype, weights, page_rows, B, K, indices):
+#: weights "w" (some 0), "none", "zero" (every one 0); indices "uniform",
+#: "dup" (8 rows in all), "out" (beyond both ends, clamped); B = -1 or -2
+#: (with K = 1): one lookup below or above STAGE_MIN_LOOKUPS, with the
+#: threshold as it is
+STAGED_CASES = [
+    ("HP", torch.float32, torch.int64, "w", 64, 256, 80, "uniform"),
+    ("HP", torch.bfloat16, torch.int64, "w", 64, 256, 80, "uniform"),
+    ("HP", torch.float32, torch.int32, "none", 64, 256, 80, "uniform"),
+    ("HP", torch.bfloat16, torch.int32, "w", 64, 256, 80, "uniform"),
+    ("HPP", torch.float32, torch.int64, "w", 64, 200, 80, "uniform"),
+    ("HPP", torch.bfloat16, torch.int32, "none", 64, 200, 80, "uniform"),
+    ("HPPP", torch.float32, torch.int32, "w", 64, 128, 80, "uniform"),
+    ("HPPP", torch.bfloat16, torch.int64, "w", 64, 128, 80, "out"),
+    ("PHP", torch.float32, torch.int64, "w", 64, 256, 80, "uniform"),
+    ("HHP", torch.float32, torch.int64, "w", 64, 256, 80, "dup"),
+    ("HP", torch.float32, torch.int64, "zero", 64, 256, 80, "uniform"),
+    ("HP", torch.float32, torch.int64, "w", 64, 256, 80, "out"),
+    ("HPP", torch.float32, torch.int64, "none", 48, 256, 80, "uniform"),
+    ("HPP", torch.bfloat16, torch.int64, "w", 48, 256, 80, "dup"),
+    ("HP", torch.float32, torch.int32, "w", 64, 9, 600, "uniform"),
+    ("HPP", torch.bfloat16, torch.int64, "w", 64, 17, 600, "out"),
+    ("HP", torch.float32, torch.int64, "w", 64, -1, 1, "uniform"),
+    ("HP", torch.float32, torch.int64, "w", 64, -2, 1, "uniform"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "layout,dtype,index_dtype,weights,page_rows,B,K,indices", STAGED_CASES,
+    ids=[f"{c[0]}-{str(c[1])[6:]}-{str(c[2])[6:]}-{c[3]}-pr{c[4]}-B{c[5]}-"
+         f"K{c[6]}-{c[7]}" for c in STAGED_CASES])
+def test_bag_reduce_staged_equals_one_launch(cuda, monkeypatch, layout, dtype,
+                                             index_dtype, weights, page_rows,
+                                             B, K, indices):
+    """The staged path (rows of the pinned shards gathered in address
+    order into HBM, then the bag kernel) against the one-launch routed
+    kernel, bit for bit, and against the plain version; 2-4 shards with
+    1-3 pinned, duplicate and clamped rows, zero and absent weights, a
+    page size that is not a power of two, bags longer than the bag
+    kernel's staging area, and the threshold's two sides."""
+    g = torch.Generator().manual_seed(len(layout) * 1000 + page_rows + K)
+    parts, pd, pl = _staged_shards(cuda, layout, dtype, page_rows, g)
+    rows = pd.numel() * page_rows
+    threshold = t_er_kernel.STAGE_MIN_LOOKUPS
+    forced = B > 0
+    if not forced:
+        B = threshold - 1 if B == -1 else threshold + 1
+    if indices == "dup":
+        idx = torch.randint(0, 8, (B, K), generator=g) * (rows // 8)
+    elif indices == "out":
+        idx = torch.randint(-3 * page_rows, rows + 3 * page_rows, (B, K),
+                            generator=g)
+    else:
+        idx = torch.randint(0, rows, (B, K), generator=g)
+    w = torch.rand((B, K), generator=g)
+    w[:, ::7] = 0
+    if weights == "zero":
+        w.zero_()
+    wt = None if weights == "none" else w.to(cuda)
+    ix = idx.to(cuda, index_dtype)
+    if forced:
+        monkeypatch.setattr(t_er_kernel, "STAGE_MIN_LOOKUPS", 1)
+    staged = t_er_kernel.stages([not p.is_cuda for p in parts], B * K, 4)
+    assert staged == (forced or B * K >= threshold)
+    t_er.STAGED.reset()
+    before = t_er.LAUNCHES.count
+    got = t_er.bag_reduce_routed(parts, pd, pl, page_rows, ix, wt)
+    assert t_er.STAGED.count == int(staged)
+    assert t_er.LAUNCHES.count - before == (
+        t_er_kernel.STAGED_KERNELS if staged else 1)
+    monkeypatch.setattr(t_er_kernel, "STAGE_MIN_LOOKUPS", t_er_kernel.MAX_ROWS)
+    one = t_er.bag_reduce_routed(parts, pd, pl, page_rows, ix, wt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, one)
+    want = t_er_ref.bag_reduce_routed(
+        [p.cpu() for p in parts], pd.cpu(), pl.cpu(), page_rows, idx,
+        None if wt is None else w.to(dtype))
+    if dtype == torch.float32:
+        assert torch.equal(got.cpu(), want)
+    else:
+        torch.testing.assert_close(got.cpu().float(), want.float(), **BF16_TOL)
+
+
+#: (layout, table dtype, index dtype, region log2): regions so small that
+#: the pinned shards hold more of them than one tile of the staged path's
+#: scan (csrc SCAN_THREADS x SCAN_ITEMS = 8,192), so the scan's carry from
+#: tile to tile and each pinned shard's first region are read
+SMALL_REGION_CASES = [
+    ("HP", torch.float32, torch.int64, 4),
+    ("HPP", torch.bfloat16, torch.int32, 4),
+    ("HPPP", torch.float32, torch.int32, 6),
+    ("PHP", torch.bfloat16, torch.int64, 5),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "layout,dtype,index_dtype,region_log2", SMALL_REGION_CASES,
+    ids=[f"{c[0]}-{str(c[1])[6:]}-{str(c[2])[6:]}-r{c[3]}"
+         for c in SMALL_REGION_CASES])
+def test_bag_reduce_staged_small_regions(cuda, monkeypatch, layout, dtype,
+                                         index_dtype, region_log2):
+    """The staged path over 10k-40k regions of 16-64 bytes, bit for bit
+    against the one-launch routed kernel."""
+    g = torch.Generator().manual_seed(100 + region_log2 + len(layout))
+    parts, pd, pl = _staged_shards(cuda, layout, dtype, 64, g)
+    row_bytes = 64 * parts[0].element_size()
+    regions = sum(-(-p.shape[0] * row_bytes >> region_log2) for p in parts
+                  if not p.is_cuda)
+    assert regions > 8192, regions
+    idx = torch.randint(0, pd.numel() * 64, (256, 80), generator=g)
+    w = torch.rand((256, 80), generator=g)
+    w[:, ::7] = 0
+    ix, wt = idx.to(cuda, index_dtype), w.to(cuda)
+    monkeypatch.setattr(t_er_kernel, "REGION_LOG2", region_log2)
+    monkeypatch.setattr(t_er_kernel, "STAGE_MIN_LOOKUPS", 1)
+    t_er.STAGED.reset()
+    got = t_er.bag_reduce_routed(parts, pd, pl, 64, ix, wt)
+    assert t_er.STAGED.count == 1
+    monkeypatch.setattr(t_er_kernel, "STAGE_MIN_LOOKUPS", t_er_kernel.MAX_ROWS)
+    one = t_er.bag_reduce_routed(parts, pd, pl, 64, ix, wt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, one)
+
+
+@pytest.mark.cuda
+def test_bag_reduce_staged_counter(cuda):
+    """``STAGED`` counts a call at the threshold with a pinned shard, and
+    neither a call one lookup below it nor an all-HBM call at it."""
+    g = torch.Generator().manual_seed(9)
+    n = t_er_kernel.STAGE_MIN_LOOKUPS
+    parts, pd, pl = _staged_shards(cuda, "HP", torch.float32, 64, g)
+    hbm = [p.to(cuda) for p in parts]
+    idx = torch.randint(0, pd.numel() * 64, (n, 1), generator=g).to(cuda)
+    t_er.STAGED.reset()
+    t_er.bag_reduce_routed(parts, pd, pl, 64, idx[:n - 1])
+    assert t_er.STAGED.count == 0
+    t_er.bag_reduce_routed(hbm, pd, pl, 64, idx)
+    assert t_er.STAGED.count == 0
+    t_er.bag_reduce_routed(parts, pd, pl, 64, idx)
+    torch.cuda.synchronize()
+    assert t_er.STAGED.count == 1
 
 
 @pytest.mark.cuda
