@@ -11,12 +11,16 @@ starts from: the pinned master of a paged leaf, else the parameter).
 
 A step is ``train.main``'s loop body: ``loss_and_grad(..., remat=True)``,
 then ``TieredAdamW.step`` or ``adamw.apply``, the loss read back as the
-driver logs it.  Spans mark the two calls and add no wait for the card:
-a traced run's steps run as an untraced run's.  In the untraced stretch
-of a traced run, CUDA events recorded before, between and after the two
-calls time each on the device, read once the window has closed."""
+driver logs it.  The window reads each loss some steps late, so that
+about :data:`AHEAD_SECONDS` of steps are dispatched ahead of the one it
+waits for and a host stall (a collection, a shared core) finds the card
+fed.  Spans mark the two calls and add no wait for the card: a traced
+run's steps run as an untraced run's.  In the untraced stretch of a
+traced run, CUDA events recorded before, between and after the two calls
+time each on the device, read once the window has closed."""
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import math
@@ -28,6 +32,10 @@ from cxlbench import traffic as traffic_mod
 from cxlbench import weights
 from cxlbench.common import synchronize
 from cxlbench.reference import dense_decoder as ref
+
+#: seconds of steps the window dispatches ahead of the step whose loss
+#: it reads
+AHEAD_SECONDS = 4.0
 
 #: the traffic parameters this driver implements
 KEYS = ("driver", "batch", "seq", "remat", "slow_fraction", "lr",
@@ -87,10 +95,15 @@ def setup(run) -> None:
                  "step": 0}
     got = {"losses": []}
     for s in range(int(tr["checked_steps"])):
+        t0 = time.perf_counter()
         got["losses"].append(float(step(run)))
+        step_s = time.perf_counter() - t0
         if s == 0:
             got["first_grads"] = _first_grads(run)
-    run.note("checked steps run")
+    # the last checked step ran warm, from an idle card to its loss
+    run.state["lag"] = max(1, math.ceil(AHEAD_SECONDS / step_s))
+    run.note(f"checked steps run, the window reads losses "
+             f"{run.state['lag']} steps late")
     got["change_norms"] = _change_norms(run)
     run.state["readings"] = got
     synchronize(dev)
@@ -164,19 +177,26 @@ def step(run) -> torch.Tensor:
 
 
 def window(run, seconds: float) -> dict:
-    """Steps for ``seconds``; the window closes when the last step's
-    work is done.  With spans on, each step's device milliseconds of
-    ``loss_and_grad`` and of the optimizer step."""
+    """Steps for ``seconds``, each loss read ``lag`` steps late; once the
+    time is up no step is sent, and the window closes when the work of
+    every step sent is done.  With spans on, each step's device
+    milliseconds of ``loss_and_grad`` and of the optimizer step."""
     card = run.device.type == "cuda"
     run.state["events"] = [] if card else None
+    lag = run.state["lag"]
+    pending: collections.deque = collections.deque()
     n = 0
     synchronize(run.device)
     t0 = time.perf_counter()
     while True:
-        float(step(run))
+        pending.append(step(run))
         n += 1
+        if len(pending) > lag:
+            float(pending.popleft())
         if time.perf_counter() - t0 >= seconds:
             break
+    for loss in pending:
+        float(loss)
     synchronize(run.device)
     t1 = time.perf_counter()
     events = run.state.pop("events") or []

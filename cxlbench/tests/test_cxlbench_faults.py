@@ -13,7 +13,7 @@ from repro_torch.core.interleave import InterleavedTensor  # noqa: E402
 from repro_torch.optim import adamw, offload  # noqa: E402
 
 DLRM = ["dlrm-zipf", "dlrm-uniform"]
-TRAIN = ["sc2-3b-train-offload", "sc2-3b-train-fused"]
+TRAIN = ["sc2-3b-train-offload", "sc2-3b-train-fused-8x1024"]
 
 
 def _broken_bags(monkeypatch, spoil):

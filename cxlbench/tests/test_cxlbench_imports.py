@@ -7,7 +7,7 @@ import ast
 
 import pytest
 
-from conftest import ROOT
+from checkout import ROOT
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}
 FILES = sorted((ROOT / "cxlbench").rglob("*.py"))

@@ -8,11 +8,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from conftest import TINY_DECODER  # noqa: E402
+from checkout import ROOT, load_cut  # noqa: E402
 from cxlbench.reference import dense_decoder as ref  # noqa: E402
 from cxlbench.reference import dlrm  # noqa: E402
 
 CPU = torch.device("cpu")
+#: the CPU tests' cut of starcoder2-3b, whole enough to run alone
+TINY_DECODER = load_cut(ROOT, "configs", "starcoder2-3b")
 TRAFFIC = {"batch": 2, "seq": 16, "lr": 3e-4, "total_steps": 10,
            "checked_steps": 3}
 
@@ -59,7 +61,6 @@ def test_the_reference_follows_the_port_on_the_cpu():
     """The port's loss and gradients of the same weights and tokens, in
     float32 (a test of the reference as much as of the port)."""
     import sys
-    from conftest import ROOT
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.models import transformer
     from cxlbench import traffic, weights
@@ -82,7 +83,6 @@ def test_the_reference_follows_the_port_on_the_cpu():
 
 
 def test_the_fp8_control_and_the_faults_fail_the_limits():
-    from conftest import ROOT
     from cxlbench.common import load_json
     limits = load_json(ROOT / "cxlbench/configs/starcoder2-3b.json")["limits"]
     cfg = dict(TINY_DECODER)

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import pytest
 
-from conftest import ROOT
+from checkout import ROOT
 
 pytest.importorskip("torch")
 

@@ -6,7 +6,7 @@ import pytest
 
 from cxlbench import peaks
 from cxlbench.common import load_json, load_piece
-from conftest import ROOT
+from checkout import ROOT
 
 ROOF = load_piece("metrics", "lookup_kernel_roofline")
 MFU = load_piece("metrics", "train_mfu")
