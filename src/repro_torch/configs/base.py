@@ -24,6 +24,73 @@ class MoESpec:
     capacity_factor: float = 1.25
     router_zloss: float = 1e-3
 
+    # DeepSeek-V2's switches, at the reference's behaviour.  Class
+    # attributes, not fields, so the ten configurations stay the
+    # reference's field for field; :class:`HeldMoESpec` makes them fields.
+    #: divide the top-k gate weights by their sum
+    norm_topk = True
+    #: DeepSeek-V2's sequence-wise balance loss weight, summed over the
+    #: MoE layers in place of the batch balance and z losses (0: off)
+    seq_aux_alpha = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class HeldMoESpec(MoESpec):
+    """A MoE layer as DeepSeek-V2 routes it, of which this card holds a
+    share: a softmax over all ``n_experts`` router outputs, greedy top-k,
+    gates left unnormalised when ``norm_topk`` is False, and only the
+    held experts computed, every pair routed to them, none dropped
+    (``capacity_factor`` is not read)."""
+    norm_topk: bool = True
+    #: routed experts held here, ``[first_held, first_held + n_held)`` of
+    #: ``n_experts`` (0: all of them)
+    n_held: int = 0
+    first_held: int = 0
+    seq_aux_alpha: float = 0.0
+
+    def __post_init__(self):
+        if self.n_held < 0 or self.first_held < 0 \
+                or self.held.stop > self.n_experts:
+            raise ValueError(f"held experts {self.held} lie outside the "
+                             f"{self.n_experts} routed experts")
+
+    @property
+    def held(self) -> range:
+        """The routed experts held here."""
+        return range(self.first_held,
+                     self.first_held + (self.n_held or self.n_experts))
+
+
+@dataclasses.dataclass(frozen=True)
+class MLASpec:
+    """Multi-head latent attention (DeepSeek-V2) without a query LoRA:
+    q = x Wq splits per head into ``qk_nope_head_dim`` + ``qk_rope_head_dim``;
+    x Wkv_a gives the ``kv_lora_rank`` latent (RMS-normed) and one rotary
+    key of ``qk_rope_head_dim`` shared by every head; the latent times
+    Wkv_b gives each head's unrotated key and its ``v_head_dim`` value."""
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+
+@dataclasses.dataclass(frozen=True)
+class YarnSpec:
+    """YaRN's rotary scaling (arXiv:2309.00071, as DeepSeek-V2 applies
+    it): frequencies blended between interpolated and extrapolated over
+    the ramp ``beta_slow``..``beta_fast`` rotations at
+    ``original_max_position``, and an attention scale from ``mscale``."""
+    factor: float
+    original_max_position: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
 
 @dataclasses.dataclass(frozen=True)
 class EncoderSpec:
@@ -67,6 +134,11 @@ class ArchConfig:
     rwkv_head_dim: int = 64
     max_seq: int = 131_072
     param_dtype: str = "bfloat16"
+    # latent attention and YaRN (:class:`LatentArchConfig`'s fields); class
+    # attributes here, so the ten configurations keep the reference's fields
+    mla = None
+    yarn = None
+
     #: sub-quadratic in sequence length (long_500k eligibility)
     @property
     def sub_quadratic(self) -> bool:
@@ -198,3 +270,63 @@ class ArchConfig:
 
     def layer_kinds(self) -> tuple[str, ...]:
         return tuple(self.block_kind(i) for i in range(self.n_layers))
+
+
+@dataclasses.dataclass(frozen=True)
+class LatentArchConfig(ArchConfig):
+    """A decoder with latent attention (``mla``) and YaRN rotary scaling
+    (``yarn``): DeepSeek-V2.  Its MoE layers may hold a share of the
+    routed experts (:class:`HeldMoESpec`)."""
+    mla: Optional[MLASpec] = None
+    yarn: Optional[YarnSpec] = None
+
+    def tiny(self) -> "LatentArchConfig":
+        """:meth:`ArchConfig.tiny`, with narrow latent attention and two
+        of the four tiny experts held."""
+        moe = self.moe
+        whole = self if moe is None else dataclasses.replace(
+            self, moe=dataclasses.replace(moe, n_held=0, first_held=0))
+        t = ArchConfig.tiny(whole)
+        moe = t.moe
+        if moe is not None and self.moe.n_held:
+            moe = dataclasses.replace(moe, n_held=2, first_held=1)
+        mla = self.mla and MLASpec(kv_lora_rank=32, qk_nope_head_dim=16,
+                                   qk_rope_head_dim=8, v_head_dim=16)
+        return dataclasses.replace(t, moe=moe, mla=mla)
+
+    def _attn_params(self) -> int:
+        m, D, H = self.mla, self.d_model, self.n_heads
+        if m is None:
+            hd = self.resolved_head_dim
+            return 2 * D * H * hd + 2 * D * self.n_kv_heads * hd
+        return (D * H * m.qk_head_dim
+                + D * (m.kv_lora_rank + m.qk_rope_head_dim)
+                + m.kv_lora_rank * H * (m.qk_nope_head_dim + m.v_head_dim)
+                + H * m.v_head_dim * D)
+
+    def _mlp_params(self, ff: int) -> int:
+        return (3 if self.act in ("swiglu", "geglu") else 2) * self.d_model * ff
+
+    def _count(self, routed: int) -> int:
+        m = self.moe
+        total = self.vocab * self.d_model * (1 if self.tie_embeddings else 2)
+        for kind in self.layer_kinds():
+            total += self._attn_params()
+            if kind == "moe":
+                total += routed * self._mlp_params(m.expert_d_ff)
+                total += m.n_shared * self._mlp_params(
+                    m.shared_d_ff or m.expert_d_ff)
+                total += self.d_model * m.n_experts  # router
+            else:
+                total += self._mlp_params(self.d_ff)
+        return total
+
+    def param_count(self) -> int:
+        """Matrix parameters (norms left out, as :meth:`ArchConfig.
+        param_count`), with the held experts only where a share is held."""
+        return self._count(self.moe.n_held or self.moe.n_experts)
+
+    def active_param_count(self) -> int:
+        """Matrix parameters a token activates: its ``top_k`` experts
+        wherever they are held, the shared experts and the rest."""
+        return self._count(self.moe.top_k)

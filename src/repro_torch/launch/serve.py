@@ -83,6 +83,9 @@ def main(argv=None):
     if args.tiny:
         arch = arch.tiny()
     cfg = arch.cfg
+    if cfg.mla is not None:
+        raise SystemExit(f"{cfg.name}: latent attention (MLA) has no decode "
+                         "or serving path")
     if cfg.family not in ("dense", "vlm"):
         # The reference lists ``moe`` too, but its tiered decode step reads
         # a dense tree's ``layers`` and stops with a KeyError on a MoE

@@ -130,6 +130,65 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 
 # ---------------------------------------------------------------------------
+# YaRN (arXiv:2309.00071) as DeepSeek-V2 applies it: each pair's frequency
+# blends the interpolated (theta-frequency / factor) and the extrapolated one
+# over a linear ramp between the dimensions that turn ``beta_fast`` and
+# ``beta_slow`` times over the original context; cos/sin carry
+# mscale(mscale) / mscale(mscale_all_dim), the softmax scale mscale(
+# mscale_all_dim) squared.
+# ---------------------------------------------------------------------------
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """``0.1 mscale ln(factor) + 1`` (1 when ``factor <= 1``)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def _yarn_correction_dim(rotations: float, dim: int, theta: float,
+                         length: int) -> float:
+    """The dimension whose frequency turns ``rotations`` times over
+    ``length`` positions."""
+    return dim * math.log(length / (rotations * 2 * math.pi)) \
+        / (2 * math.log(theta))
+
+
+def yarn_freqs(dim: int, theta: float, yarn, device=None) -> torch.Tensor:
+    """(dim/2,) inverse frequencies of a ``dim``-wide rotary part."""
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    extra = 1.0 / (theta ** exps)
+    inter = 1.0 / (yarn.factor * theta ** exps)
+    low = max(math.floor(_yarn_correction_dim(
+        yarn.beta_fast, dim, theta, yarn.original_max_position)), 0)
+    high = min(math.ceil(_yarn_correction_dim(
+        yarn.beta_slow, dim, theta, yarn.original_max_position)), dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = torch.clamp((torch.arange(dim // 2, dtype=torch.float32,
+                                     device=device) - low) / (high - low),
+                       0, 1)
+    keep = 1.0 - ramp  # 1: extrapolated (fast dims), 0: interpolated
+    return inter * (1 - keep) + extra * keep
+
+
+def yarn_tables(positions: torch.Tensor, dim: int, theta: float, yarn):
+    """(cos, sin) as :func:`rope_tables` gives them, of YaRN's frequencies,
+    each times ``mscale(mscale) / mscale(mscale_all_dim)``."""
+    freqs = yarn_freqs(dim, theta, yarn, device=positions.device)
+    angles = positions[..., :, None].to(torch.float32) * freqs
+    m = yarn_mscale(yarn.factor, yarn.mscale) \
+        / yarn_mscale(yarn.factor, yarn.mscale_all_dim)
+    return ((torch.cos(angles) * m)[..., :, None, :],
+            (torch.sin(angles) * m)[..., :, None, :])
+
+
+def yarn_softmax_scale(qk_head_dim: int, yarn) -> float:
+    """``qk_head_dim ** -0.5``, times ``mscale(mscale_all_dim)`` squared
+    under YaRN (``yarn`` None: plain)."""
+    scale = qk_head_dim ** -0.5
+    if yarn is not None and yarn.mscale_all_dim:
+        scale *= yarn_mscale(yarn.factor, yarn.mscale_all_dim) ** 2
+    return scale
+
+
+# ---------------------------------------------------------------------------
 # MLPs.  GELU is the tanh approximation, jax.nn.gelu's default.
 # ---------------------------------------------------------------------------
 def _gelu(x: torch.Tensor) -> torch.Tensor:

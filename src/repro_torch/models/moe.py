@@ -25,6 +25,14 @@ dispatch (per-rank routing, one all-to-all each way), where the
 reference's runs over a mesh axis in ``shard_map``.
 ``decode_step`` writes the cache in place, as the dense decode does.
 ``loss`` adds the routers' load-balance and z losses to the token NLL.
+
+DeepSeek-V2 (``configs/deepseek_v2_lite.py``), which the reference does
+not have: its layers' attention is latent (:mod:`repro_torch.models.mla`),
+its gates may stay unnormalised (``MoESpec.norm_topk``), and a
+:class:`HeldMoESpec` layer computes only the experts this card holds of
+an expert-parallel deployment, dropless (:func:`held_moe_mlp`), with the
+sequence-wise balance loss.  Such a configuration trains; its decode is
+refused.
 """
 from __future__ import annotations
 
@@ -38,9 +46,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ArchConfig, MoESpec
+from repro_torch.configs.base import ArchConfig, HeldMoESpec, MoESpec
+from repro_torch.core.telemetry import span
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import mla
 from repro_torch.models import transformer as dense
 from repro_torch.models.common import (ParamTree, apply_norm, cross_entropy,
                                        current_policy, dtype_of, embed_init,
@@ -49,10 +59,11 @@ from repro_torch.models.common import (ParamTree, apply_norm, cross_entropy,
 
 
 class MoEParams(nn.Module):
-    """The parameter tree of one MoE model (inference only: no grads):
-    ``embed``, ``head_dense`` (``first_dense`` dense layers, stacked),
-    ``units.moe`` and, when ``every == 2``, ``units.dense`` (stacked over
-    the units), ``final_norm`` and ``lm_head`` (stored ``(D, V)``)."""
+    """The parameter tree of one MoE model, frozen outside
+    :func:`loss_and_grad` (which trains it): ``embed``, ``head_dense``
+    (``first_dense`` dense layers, stacked), ``units.moe`` and, when
+    ``every == 2``, ``units.dense`` (stacked over the units),
+    ``final_norm`` and ``lm_head`` (stored ``(D, V)``)."""
 
     def __init__(self, embed: torch.Tensor, head_dense: Optional[dict],
                  units: dict, final_norm: dict,
@@ -149,7 +160,8 @@ def _route(x2d: torch.Tensor, router: torch.Tensor, spec: MoESpec,
     logits = x2d.to(torch.float32) @ router.to(torch.float32)  # (T,E)
     probs = torch.softmax(logits, dim=-1)
     gate_w, gate_ids = torch.topk(probs, K, dim=-1)
-    gate_w = gate_w / torch.clamp_min(gate_w.sum(-1, keepdim=True), 1e-9)
+    if spec.norm_topk:
+        gate_w = gate_w / torch.clamp_min(gate_w.sum(-1, keepdim=True), 1e-9)
     flat_ids = gate_ids.reshape(-1)
     order = torch.argsort(flat_ids, stable=True)
     sorted_ids = flat_ids[order]
@@ -163,21 +175,29 @@ def _route(x2d: torch.Tensor, router: torch.Tensor, spec: MoESpec,
     return Route(logits, probs, gate_ids, order, sorted_ids, keep, dest, w)
 
 
-def _combine(out_buf: torch.Tensor, route: Route, T: int, K: int
-             ) -> torch.Tensor:
-    """Each token's sum of its kept slots' outputs ``out_buf`` (E*C, D),
-    weighted, in the reference's scatter order: a token's choices by
-    ascending expert id (their order in the stable sort)."""
+def _combine(out_buf: torch.Tensor, route: Route, T: int, K: int,
+             row: Optional[torch.Tensor] = None,
+             mine: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Each token's sum of its pairs' outputs, weighted, in the
+    reference's scatter order: a token's choices by ascending expert id
+    (their order in the stable sort).  ``row`` (T*K,) gives each sorted
+    pair's row of ``out_buf`` (by default its kept slot of the (E*C, D)
+    buffer); with ``mine`` (T*K,) a pair it leaves out adds nothing."""
     order, gate_ids, dest = route.order, route.gate_ids, route.dest
-    contrib = out_buf[torch.where(route.keep, dest, torch.zeros_like(dest))]
-    contrib = contrib * route.weights[:, None]  # (T*K, D) in sorted order
+    if row is None:
+        row = torch.where(route.keep, dest, torch.zeros_like(dest))
     slot_of = torch.empty_like(order)
     slot_of[order] = torch.arange(T * K, device=order.device)
     by_id = torch.argsort(gate_ids, dim=-1)  # a token's experts are distinct
     rows = slot_of.reshape(T, K).gather(1, by_id)  # (T, K) sorted positions
-    y = contrib[rows[:, 0]]
-    for j in range(1, K):
-        y = y + contrib[rows[:, j]]
+    y = None
+    for j in range(K):
+        pos = rows[:, j]
+        part = out_buf[row[pos]]
+        if mine is not None:  # before the weight: a left-out row is garbage
+            part = torch.where(mine[pos, None], part, 0)
+        part = part * route.weights[pos, None]
+        y = part if y is None else y + part
     return y
 
 
@@ -310,18 +330,127 @@ def routed_mlp(x2d: torch.Tensor, p: dict, spec: MoESpec, act: str):
     return moe_mlp(x2d, p, spec, act)
 
 
+# ---------------------------------------------------------------------------
+# Held experts (DeepSeek-V2 on one card of an expert-parallel deployment)
+# ---------------------------------------------------------------------------
+def grouped_mm(x: torch.Tensor, w: torch.Tensor, ends: torch.Tensor
+               ) -> torch.Tensor:
+    """Rows ``[ends[g-1], ends[g])`` of ``x`` (M, a) times ``w[g]`` (a, b),
+    ``ends`` (G,) int32 cumulative on the device: (M, b), its rows from
+    ``ends[-1]`` on undefined (the caller masks them).  On the card,
+    ``torch._grouped_mm`` (bf16; it takes the ends on the device, so
+    nothing is read back); on the CPU :func:`grouped_mm_by_group`."""
+    if x.is_cuda:
+        return torch._grouped_mm(x, w, offs=ends)
+    return grouped_mm_by_group(x, w, ends)
+
+
+def grouped_mm_by_group(x: torch.Tensor, w: torch.Tensor,
+                        ends: torch.Tensor) -> torch.Tensor:
+    """:func:`grouped_mm` as one product a group, the rows from
+    ``ends[-1]`` on zeros: the CPU's path, and the card's fp32 reference
+    in its test (it reads ``ends`` to the host)."""
+    parts, lo = [], 0
+    for g, hi in enumerate(ends.tolist()):
+        parts.append(x[lo:hi] @ w[g])
+        lo = hi
+    parts.append(x.new_zeros((x.shape[0] - lo, w.shape[-1])))
+    return torch.cat(parts)
+
+
+def grouped_expert_apply(xs: torch.Tensor, p: dict, ends: torch.Tensor,
+                         act: str) -> torch.Tensor:
+    """xs (M, D) grouped by expert (``ends``) -> (M, D) through each
+    group's expert MLP (:func:`expert_apply` over segments)."""
+    if "w_gate" in p:
+        inner = F.silu(grouped_mm(xs, p["w_gate"], ends)) \
+            * grouped_mm(xs, p["w_up"], ends)
+    else:
+        inner = F.gelu(grouped_mm(xs, p["w_up"], ends), approximate="tanh")
+    return grouped_mm(inner, p["w_down"], ends)
+
+
+def seq_balance(route: Route, n_seqs: int, E: int) -> torch.Tensor:
+    """DeepSeek-V2's sequence-wise balance term (arXiv:2405.04434
+    §2.2.3), the mean over sequences of ``sum_i f_i P_i``: ``f_i`` expert
+    ``i``'s share of the sequence's (token, choice) pairs times ``E``,
+    ``P_i`` its mean router probability over the sequence's tokens.  The
+    counts add ones (exact in any order)."""
+    T, K = route.gate_ids.shape
+    S = T // n_seqs
+    ids = route.gate_ids.reshape(n_seqs, S * K)
+    counts = torch.zeros((n_seqs, E), dtype=torch.float32,
+                         device=ids.device).scatter_add_(
+        1, ids, torch.ones(ids.shape, dtype=torch.float32,
+                           device=ids.device))
+    f = counts * (E / (S * K))
+    P = route.probs.reshape(n_seqs, S, E).mean(dim=1)
+    return (f * P).sum(dim=1).mean()
+
+
+def held_moe_mlp(x2d: torch.Tensor, p: dict, spec: HeldMoESpec, act: str,
+                 n_seqs: int = 1):
+    """This card's share of a MoE layer: route each token over all
+    ``n_experts`` (softmax, greedy top-k, gates as ``spec.norm_topk``
+    says), compute every (token, choice) pair routed to a held expert
+    (``spec.held``; ``p["experts"]`` stacked over them), none dropped, and
+    give each token the weighted sum of its held choices, in ascending
+    expert id; pairs routed elsewhere add nothing here (another card
+    computes them).  The shared experts are computed whole.
+
+    No count is read back to the host: the held pairs, a contiguous run
+    of the expert-sorted pairs, fill the first rows of a buffer of
+    ``T min(top_k, n_held)`` rows (as many as there can be), and the
+    grouped products take the experts' ends on the device.  The buffer's
+    other rows are masked out both ways.  Spans: ``repro.moe.route``
+    (router, top-k, sort), ``repro.moe.dispatch``, ``repro.moe.experts``
+    (the held experts' products), ``repro.moe.combine``.  Returns (y
+    (T, D), aux: ``seq_lb`` over ``n_seqs`` sequences, ``lb_loss``,
+    ``z_loss``, ``dropped`` 0 and ``expert_counts`` (n_held,), the held
+    experts' pairs)."""
+    T, D = x2d.shape
+    E, K, held = spec.n_experts, spec.top_k, spec.held
+    M = T * min(K, len(held))
+    dev = x2d.device
+    with span("repro.moe.route"):
+        # T slots an expert: a token's choices are distinct, so none drop
+        route = _route(x2d, p["router"], spec, T)
+        bounds = torch.searchsorted(route.sorted_ids, torch.arange(
+            held.start, held.stop + 1, device=dev))
+        lo = bounds[0]
+        ends = (bounds[1:] - lo).to(torch.int32)
+    with span("repro.moe.dispatch"):
+        src = lo + torch.arange(M, device=dev)
+        valid = src < bounds[-1]
+        pair = route.order[torch.clamp_max(src, T * K - 1)]
+        xs = torch.where(valid[:, None], x2d[pair // K], 0)
+    with span("repro.moe.experts"):
+        ys = grouped_expert_apply(xs, p["experts"], ends, act)
+    with span("repro.moe.combine"):
+        at = torch.arange(T * K, device=dev)
+        y = _combine(ys, route, T, K, row=torch.clamp(at - lo, 0, M - 1),
+                     mine=(at >= lo) & (at < bounds[-1]))
+    if spec.n_shared:
+        y = y + mlp_apply(x2d, p["shared"], act)
+    f_e, p_e, z, _, counts = _aux(route, E)
+    return y, {"seq_lb": seq_balance(route, n_seqs, E),
+               "lb_loss": E * torch.sum(f_e * p_e), "z_loss": z,
+               "dropped": torch.zeros((), device=dev),
+               "expert_counts": counts[held.start:held.stop]}
+
+
 def moe_layer_params(cfg: ArchConfig, gen: torch.Generator, device) -> dict:
     dt = dtype_of(cfg.param_dtype)
     spec = cfg.moe
     D = cfg.d_model
+    n_local = len(spec.held) if isinstance(spec, HeldMoESpec) \
+        else spec.n_experts
     p = {
         "ln1": norm_params(D, cfg.norm, torch.float32, device=device),
-        "attn": attn.attn_params(gen, D, cfg.n_heads, cfg.n_kv_heads,
-                                 cfg.resolved_head_dim, dt, cfg.qkv_bias,
-                                 device=device),
+        "attn": _attn_params(cfg, gen, dt, device),
         "ln2": norm_params(D, cfg.norm, torch.float32, device=device),
         "router": he(gen, (D, spec.n_experts), torch.float32, device=device),
-        "experts": expert_params(gen, spec.n_experts, D, spec.expert_d_ff,
+        "experts": expert_params(gen, n_local, D, spec.expert_d_ff,
                                  cfg.act, dt, device=device),
     }
     if spec.n_shared:
@@ -332,18 +461,62 @@ def moe_layer_params(cfg: ArchConfig, gen: torch.Generator, device) -> dict:
     return p
 
 
-def _moe_layer_fwd(cfg: ArchConfig, x: torch.Tensor, lp: dict,
-                   positions: torch.Tensor):
-    h = apply_norm(x, lp["ln1"], cfg.norm)
-    h = attn.attention(
-        h, lp["attn"], n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+def _attn_params(cfg: ArchConfig, gen: torch.Generator, dt, device
+                 ) -> dict:
+    """A layer's attention: latent (``cfg.mla``) or GQA."""
+    if cfg.mla is not None:
+        return mla.mla_params(gen, cfg, dt, device=device)
+    return attn.attn_params(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                            cfg.resolved_head_dim, dt, cfg.qkv_bias,
+                            device=device)
+
+
+def _attend(cfg: ArchConfig, h: torch.Tensor, p: dict,
+            positions: torch.Tensor) -> torch.Tensor:
+    if cfg.mla is not None:
+        return mla.mla_attention(h, p, cfg, positions)
+    return attn.attention(
+        h, p, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.resolved_head_dim, positions=positions, causal=True,
         window=cfg.local_window, rope_theta=cfg.rope_theta,
         rope_pct=cfg.rope_pct, use_rope=cfg.rope)
-    x = x + h
+
+
+def _dense_layer_params(cfg: ArchConfig, gen: torch.Generator, device
+                        ) -> dict:
+    """A dense layer: the transformer's, its attention latent when
+    ``cfg.mla`` says so."""
+    if cfg.mla is None:
+        return dense.init_layer(cfg, gen, device)
+    dt = dtype_of(cfg.param_dtype)
+    D = cfg.d_model
+    return {"ln1": norm_params(D, cfg.norm, torch.float32, device=device),
+            "attn": mla.mla_params(gen, cfg, dt, device=device),
+            "ln2": norm_params(D, cfg.norm, torch.float32, device=device),
+            "mlp": mlp_params(gen, D, cfg.d_ff, cfg.act, dt, device=device)}
+
+
+def _dense_layer_fwd(cfg: ArchConfig, x: torch.Tensor, lp: dict,
+                     positions: torch.Tensor) -> torch.Tensor:
+    if cfg.mla is None:
+        return dense._layer_fwd(cfg, x, lp, positions)
+    x = x + _attend(cfg, apply_norm(x, lp["ln1"], cfg.norm), lp["attn"],
+                    positions)
+    h = apply_norm(x, lp["ln2"], cfg.norm)
+    return x + mlp_apply(h, lp["mlp"], cfg.act)
+
+
+def _moe_layer_fwd(cfg: ArchConfig, x: torch.Tensor, lp: dict,
+                   positions: torch.Tensor):
+    h = apply_norm(x, lp["ln1"], cfg.norm)
+    x = x + _attend(cfg, h, lp["attn"], positions)
     h = apply_norm(x, lp["ln2"], cfg.norm)
     B, S, D = h.shape
-    y, aux = routed_mlp(h.reshape(B * S, D), lp, cfg.moe, cfg.act)
+    if isinstance(cfg.moe, HeldMoESpec):
+        y, aux = held_moe_mlp(h.reshape(B * S, D), lp, cfg.moe, cfg.act,
+                              n_seqs=B)
+    else:
+        y, aux = routed_mlp(h.reshape(B * S, D), lp, cfg.moe, cfg.act)
     return x + maybe_shard(y.reshape(B, S, D), "act_btd"), aux
 
 
@@ -371,13 +544,13 @@ def init(cfg: ArchConfig, seed: Union[int, torch.Generator] = 0, *,
     embed = embed_init(gen, cfg.vocab_padded, cfg.d_model, dt, device=device)
     head = None
     if n_head:
-        head = dense.stack_layers(lambda: dense.init_layer(cfg, gen, device),
+        head = dense.stack_layers(lambda: _dense_layer_params(cfg, gen, device),
                                   n_head, device)
 
     def unit() -> dict:
         out = {}
         if has_dense:
-            out["dense"] = dense.init_layer(cfg, gen, device)
+            out["dense"] = _dense_layer_params(cfg, gen, device)
         out["moe"] = moe_layer_params(cfg, gen, device)
         return out
     units = dense.stack_layers(unit, n_units, device)
@@ -405,10 +578,12 @@ def forward_with_aux(cfg: ArchConfig, params: MoEParams,
                      remat: bool = False, last_only: bool = False):
     """(logits, aux): aux holds the mean ``lb_loss``/``z_loss`` over the
     units, the mean ``dropped`` share and ``expert_counts`` (E,) summed
-    over the units — the histogram a :class:`HotnessLedger` records.
-    ``remat`` recomputes each layer in the backward pass."""
+    over the units — the histogram a :class:`HotnessLedger` records (a
+    held share's: its held experts' pairs) — and, for a held share,
+    ``seq_lb`` summed over the units.  ``remat`` recomputes each layer in
+    the backward pass."""
     x, positions = dense.embed_tokens(params, tokens, prefix_embeds)
-    dense_fwd = partial(dense._layer_fwd, cfg)
+    dense_fwd = partial(_dense_layer_fwd, cfg)
     moe_fwd = partial(_moe_layer_fwd, cfg)
     if remat and torch.is_grad_enabled():
         dense_fwd = partial(checkpoint, dense_fwd, use_reentrant=False)
@@ -416,33 +591,46 @@ def forward_with_aux(cfg: ArchConfig, params: MoEParams,
     heads, units = params.trees()
     for lp in heads:
         x = dense_fwd(x, lp, positions)
-    lb = zl = 0.0
+    lb = zl = seq = 0.0
     dropped, counts = [], []
     for up in units:
         if "dense" in up:
             x = dense_fwd(x, up["dense"], positions)
         x, aux = moe_fwd(x, up["moe"], positions)
         lb, zl = lb + aux["lb_loss"], zl + aux["z_loss"]
+        seq = seq + aux.get("seq_lb", 0.0)
         dropped.append(aux["dropped"])
         counts.append(aux["expert_counts"])
     if last_only:
         x = x[:, -1:]
     logits = dense.head_logits(cfg, params, x)
     n = params.n_units
-    return logits, {"lb_loss": lb / n, "z_loss": zl / n,
-                    "dropped": torch.stack(dropped).mean(),
-                    "expert_counts": torch.stack(counts).sum(dim=0)}
+    out = {"lb_loss": lb / n, "z_loss": zl / n,
+           "dropped": torch.stack(dropped).mean(),
+           "expert_counts": torch.stack(counts).sum(dim=0)}
+    if isinstance(cfg.moe, HeldMoESpec):
+        out["seq_lb"] = seq
+    return logits, out
 
 
 def loss(cfg: ArchConfig, params: MoEParams, batch: dict, *,
-         remat: bool = False) -> torch.Tensor:
+         remat: bool = False,
+         expert_counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token NLL plus the routers' auxiliary losses: ``nll + 0.01 lb +
-    router_zloss z``, as the reference."""
+    router_zloss z``, as the reference; with ``seq_aux_alpha`` (DeepSeek-
+    V2) ``nll + seq_aux_alpha * seq_lb`` instead, the sequence-wise term
+    summed over the MoE layers.  ``expert_counts``, a float32 tensor of
+    ``forward_with_aux``'s ``expert_counts`` shape on the device, gets the
+    batch's histogram added in place (nothing is read to the host)."""
     logits, aux = forward_with_aux(
         cfg, params, batch["tokens"],
         prefix_embeds=batch.get("prefix_embeds"), remat=remat)
+    if expert_counts is not None:
+        expert_counts.add_(aux["expert_counts"].detach())
     nll = cross_entropy(logits, batch["labels"].to(logits.device),
                         batch.get("mask"))
+    if cfg.moe.seq_aux_alpha:
+        return nll + cfg.moe.seq_aux_alpha * aux["seq_lb"]
     return nll + 0.01 * aux["lb_loss"] + cfg.moe.router_zloss * aux["z_loss"]
 
 
@@ -452,7 +640,12 @@ loss_and_grad = loss_and_grad_of(loss)
 # ---------------------------------------------------------------------------
 # Decode
 # ---------------------------------------------------------------------------
-init_cache = dense.init_cache  # same KV layout (uniform attention stack)
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, *,
+               device: DeviceLike = None) -> dict:
+    """The dense transformer's cache (the same KV layout: a uniform
+    attention stack); a latent configuration is refused."""
+    mla.refuse_decode(cfg)
+    return dense.init_cache(cfg, batch, max_len, dtype, device=device)
 
 
 def decode_step(cfg: ArchConfig, params: MoEParams, cache: dict,
@@ -460,7 +653,9 @@ def decode_step(cfg: ArchConfig, params: MoEParams, cache: dict,
                 ) -> tuple[torch.Tensor, dict]:
     """One token for every sequence: (logits (B,V), cache with ``len +
     1``), layer ``li`` attending over ``cache["k"][li]`` (written in
-    place).  ``attend`` replaces the per-partition attention."""
+    place).  ``attend`` replaces the per-partition attention.  A latent
+    configuration is refused."""
+    mla.refuse_decode(cfg)
     x = params.embed[tokens.to(params.embed.device).long()]
     pos = cache["len"]
     kc, vc = cache["k"], cache["v"]

@@ -1,6 +1,7 @@
 """Architecture registry: ``--arch <id>`` -> (config, model module).
 
-All ten configs and all six model families: ``dense`` and ``vlm`` (the
+All ten configs of the reference, DeepSeek-V2-Lite beside them, and all
+six model families: ``dense`` and ``vlm`` (the
 transformer backbone), ``moe``, ``ssm`` (rwkv6), ``hybrid`` (RG-LRU +
 local attention) and ``audio`` (whisper's encoder-decoder).  Every model
 module exposes ``init(cfg, seed, device=)``, ``forward``, ``loss``,
@@ -37,6 +38,12 @@ _FAMILY_MODULES = {
 
 ARCH_IDS = tuple(_CONFIG_MODULES)
 
+#: configurations found by id beside the reference's ten (not in
+#: ``ARCH_IDS``, which stays the reference's)
+_MORE_CONFIG_MODULES = {
+    "deepseek-v2-lite": "deepseek_v2_lite",
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class Arch:
@@ -52,10 +59,10 @@ class Arch:
 
 
 def get_config(arch_id: str) -> ArchConfig:
-    if arch_id not in _CONFIG_MODULES:
-        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_CONFIG_MODULES)}")
-    mod = importlib.import_module(
-        f"repro_torch.configs.{_CONFIG_MODULES[arch_id]}")
+    known = {**_CONFIG_MODULES, **_MORE_CONFIG_MODULES}
+    if arch_id not in known:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(known)}")
+    mod = importlib.import_module(f"repro_torch.configs.{known[arch_id]}")
     return mod.CONFIG
 
 
